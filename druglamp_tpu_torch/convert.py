@@ -1,0 +1,92 @@
+"""Weight bridge: the JAX package's flax trees → the port's ``state_dict``.
+
+The flax trees (``params``, ``batch_stats``) come in as nested dicts of numpy
+arrays.  A leaf's flax path, joined with ``/`` (e.g.
+``drug_extractor/layer_0/graph_kernel``), maps to one ``state_dict`` key:
+
+- dense ``kernel`` (in, out) → ``weight`` (out, in); conv ``kernel``
+  (k, in, out) → ``weight`` (out, in, k);
+- LayerNorm / BatchNorm ``scale`` → ``weight``; BatchNorm ``{mean, var}`` from
+  batch_stats → ``running_mean`` / ``running_var``; the ``BatchNorm_0`` level
+  of the flax path is dropped;
+- GCN ``graph_kernel`` / ``graph_bias`` → ``graph.weight`` (transposed) /
+  ``graph.bias``; ``init_transform`` → ``init_transform.weight`` (transposed);
+  ``embedding`` → ``embedding.weight``; GCA ``in_proj_weight`` (E, 3E) →
+  torch MultiheadAttention's (3E, E).
+
+The SSL and CM heads are not ported yet: their subtrees are skipped and
+listed.  Any other key the model lacks, or any model key left unfilled,
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+SKIPPED_SUBTREES = ("ssl_model", "cm_model")
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+# flax leaf name → (state_dict key tail, transpose?)
+_LEAF_RENAMES = {
+    "scale": ("weight", False),
+    "graph_kernel": ("graph.weight", True),
+    "graph_bias": ("graph.bias", False),
+    "init_transform": ("init_transform.weight", True),
+    "in_proj_weight": ("in_proj_weight", True),
+    "embedding": ("embedding.weight", False),
+    "mean": ("running_mean", False),
+    "var": ("running_var", False),
+}
+
+
+def _map_leaf(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    *head, leaf = [p for p in path.split("/") if p != "BatchNorm_0"]
+    if leaf == "kernel":
+        tail = "weight"
+        value = value.T if value.ndim == 2 else value.transpose(2, 1, 0)
+    else:
+        tail, transpose = _LEAF_RENAMES.get(leaf, (leaf, False))
+        value = value.T if transpose else value
+    return ".".join(head + [tail]), value
+
+
+def from_jax_params(params: Mapping, batch_stats: Mapping, model: nn.Module
+                    ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """→ (state_dict for ``model``, skipped flax paths).  Raises ``KeyError``
+    on a flax leaf the model has no key for, or a model key left unfilled,
+    and ``ValueError`` on a shape mismatch."""
+    expected = model.state_dict()
+    state: Dict[str, torch.Tensor] = {}
+    skipped: List[str] = []
+    leaves = {**_flatten(params), **_flatten(batch_stats)}
+    for path, value in leaves.items():
+        if path.split("/")[0] in SKIPPED_SUBTREES:
+            skipped.append(path)
+            continue
+        key, value = _map_leaf(path, value)
+        if key not in expected:
+            raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
+        tensor = torch.tensor(np.asarray(value, dtype=np.float32))
+        if tuple(tensor.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{path!r}: shape {tuple(tensor.shape)} != model "
+                             f"{key!r} {tuple(expected[key].shape)}")
+        state[key] = tensor
+    missing = sorted(set(expected) - set(state))
+    if missing:
+        raise KeyError(f"model keys missing from the flax trees: {missing}")
+    return state, skipped
