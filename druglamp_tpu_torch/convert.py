@@ -1,4 +1,6 @@
-"""Weight bridge: the JAX package's flax trees → the port's ``state_dict``.
+"""Weight bridge: the JAX package's flax trees → the port's ``state_dict``,
+and back (``to_jax_paths``, for comparing gradients and updated parameters
+leaf by leaf with the JAX step).
 
 The flax trees (``params``, ``batch_stats``) come in as nested dicts of numpy
 arrays.  A leaf's flax path, joined with ``/`` (e.g.
@@ -26,6 +28,8 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from druglamp_tpu_torch.nn.layers import TorchBatchNorm
 
 SKIPPED_SUBTREES = ("ssl_model", "cm_model")
 
@@ -90,3 +94,32 @@ def from_jax_params(params: Mapping, batch_stats: Mapping, model: nn.Module
     if missing:
         raise KeyError(f"model keys missing from the flax trees: {missing}")
     return state, skipped
+
+
+def to_jax_paths(tensors: Mapping[str, torch.Tensor], model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``from_jax_params``'s leaf map: a dict keyed like
+    ``model.state_dict()`` (the state dict itself, or the parameters'
+    ``.grad``s) → {flax path joined with ``/``: f32 numpy array in flax
+    layout}.  A BatchNorm's leaves regain their ``BatchNorm_0`` level; the
+    model tells its weight and bias from a LayerNorm's or a Dense's."""
+    norms = {name for name, m in model.named_modules() if isinstance(m, TorchBatchNorm)}
+    norm_leaves = {"weight": "scale", "running_mean": "mean", "running_var": "var"}
+    dotted = {tail: (leaf, t) for leaf, (tail, t) in _LEAF_RENAMES.items() if "." in tail}
+    out: Dict[str, np.ndarray] = {}
+    for key, tensor in tensors.items():
+        value = tensor.detach().cpu().float().numpy()
+        owner, _, tail = key.rpartition(".")
+        head = owner.split(".") if owner else []
+        last_two = ".".join(key.split(".")[-2:])
+        if owner in norms:
+            path = head + ["BatchNorm_0", norm_leaves.get(tail, tail)]
+        elif last_two in dotted:                            # graph / init_transform / embedding
+            leaf, transpose = dotted[last_two]
+            path, value = head[:-1] + [leaf], (value.T if transpose else value)
+        elif tail == "weight":      # Dense (out, in) / conv (out, in, k) kernel, LayerNorm scale
+            path, value = head + ["kernel" if value.ndim > 1 else "scale"], value.T
+        else:
+            path = head + [tail]
+            value = value.T if _LEAF_RENAMES.get(tail, (tail, False))[1] else value
+        out["/".join(path)] = np.array(value)            # a copy: the model updates in place
+    return out

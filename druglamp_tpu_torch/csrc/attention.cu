@@ -26,26 +26,24 @@
 // formed).  The arithmetic is plain f32 FMA on a 16×16 thread grid (no tensor
 // cores yet): each thread owns a register tile of scores and of the output.
 // It is correct first; wgmma/TMA staging is later work.
+//
+// For training, the kernel also writes each row's log-sum-exp of the scaled
+// logits, lse = m + log(l), f32, laid out (NQ, B·H, L); the backward kernels
+// (attention_bwd.cu) recompute P = exp(S·scale − lse) from it.  Serving passes
+// lse = nullptr and writes nothing extra.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kRows = 64;      // query rows of each query set per block
-constexpr int kChunk = 64;     // keys per K/V chunk (two per lane in the softmax)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using attn::from_f32;
+using attn::kChunk;
+using attn::kRows;
+using attn::kThreads;
+using attn::to_f32;
 
 template <int D, int NQ>
 struct Layout {
@@ -60,12 +58,13 @@ struct Layout {
 };
 
 // Query set n (n < NQ) is qn, its output on. Rows past L are computed on zeros
-// and not stored.
+// and not stored.  lse, when not null, is (NQ, gridDim.x = B·H, L).
 template <typename T, int D, int NQ>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q0, const T* __restrict__ q1,
                      const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o0, T* __restrict__ o1, int L, int S, float scale) {
+                     T* __restrict__ o0, T* __restrict__ o1, float* __restrict__ lse,
+                     int L, int S, float scale) {
   using Lay = Layout<D, NQ>;
   constexpr int QR = Lay::kQRows, DP = Lay::kDP, CP = Lay::kCP;
   constexpr int RI = QR / 16;      // query rows per thread
@@ -198,6 +197,8 @@ attention_fwd_kernel(const T* __restrict__ q0, const T* __restrict__ q1,
     if (row >= L) continue;
     const float inv = 1.f / sL[r];
     T* os = (r < kRows) ? o0 : o1;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)(r / kRows) * gridDim.x + bh) * L + row] = sM[r] + logf(sL[r]);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       os[(bh * L + row) * D + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
@@ -206,45 +207,46 @@ attention_fwd_kernel(const T* __restrict__ q0, const T* __restrict__ q1,
 
 template <typename T, int D, int NQ>
 cudaError_t launch(const void* q0, const void* q1, const void* k, const void* v, void* o0,
-                   void* o1, int bh, int L, int S, cudaStream_t stream) {
+                   void* o1, float* lse, int bh, int L, int S, cudaStream_t stream) {
   auto kernel = attention_fwd_kernel<T, D, NQ>;
   const size_t smem = Layout<D, NQ>::kBytes;
-  // above 48 KB dynamic shared memory must be allowed per kernel (and device)
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = attn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (L + kRows - 1) / kRows);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q0), static_cast<const T*>(q1), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o0), static_cast<T*>(o1), L, S, scale);
+      static_cast<const T*>(v), static_cast<T*>(o0), static_cast<T*>(o1), lse, L, S, scale);
   return cudaGetLastError();
 }
 
 template <int NQ>
 int dispatch(const void* q0, const void* q1, const void* k, const void* v, void* o0, void* o1,
-             int bh, int L, int S, int D, int dtype, void* stream) {
+             void* lse_ptr, int bh, int L, int S, int D, int dtype, void* stream) {
   if (bh < 1 || L < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<float, 64, NQ>(q0, q1, k, v, o0, o1, bh, L, S, st);
-  if (dtype == 0 && D == 128) return launch<float, 128, NQ>(q0, q1, k, v, o0, o1, bh, L, S, st);
+  float* lse = static_cast<float*>(lse_ptr);
+  if (dtype == 0 && D == 64) return launch<float, 64, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64, NQ>(q0, q1, k, v, o0, o1, bh, L, S, st);
+    return launch<__nv_bfloat16, 64, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128, NQ>(q0, q1, k, v, o0, o1, bh, L, S, st);
+    return launch<__nv_bfloat16, 128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  lse: (NQ, bh, L) f32 or null.  Returns the
+// cudaError_t of the launch.
 extern "C" int paired_attention_fwd(const void* q, const void* k, const void* v, const void* q_other,
-                                    void* o1, void* o2, int bh, int L, int S, int D, int dtype,
-                                    void* stream) {
-  return dispatch<2>(q, q_other, k, v, o1, o2, bh, L, S, D, dtype, stream);
+                                    void* o1, void* o2, void* lse, int bh, int L, int S, int D,
+                                    int dtype, void* stream) {
+  return dispatch<2>(q, q_other, k, v, o1, o2, lse, bh, L, S, D, dtype, stream);
 }
 
-extern "C" int self_attention_fwd(const void* q, const void* k, const void* v, void* o, int bh,
-                                  int L, int S, int D, int dtype, void* stream) {
-  return dispatch<1>(q, q, k, v, o, o, bh, L, S, D, dtype, stream);
+extern "C" int self_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                  int bh, int L, int S, int D, int dtype, void* stream) {
+  return dispatch<1>(q, q, k, v, o, o, lse, bh, L, S, D, dtype, stream);
 }

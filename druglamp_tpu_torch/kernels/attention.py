@@ -1,19 +1,27 @@
 """Attention cores for PMMA: paired (two query sets against one K/V) and plain
-self-attention.
+self-attention, forward and backward.
 
 Each function has two versions in this module:
 
-- the plain PyTorch version (``attention_plain``; the port of the reference's
+- the plain PyTorch version: ``attention_plain`` (the port of the reference's
   unfused ``_attn``, ``druglamp_tpu/kernels/paired_attention.py``): f32
   logits scaled by 1/√D, f32 softmax over keys, probabilities cast to v's
-  dtype, f32 accumulation, output in v's dtype;
-- a hand-written CUDA kernel (``csrc/attention.cu``) that replaces the Pallas
-  TPU kernel ``paired_attention_pallas`` / ``self_attention_pallas`` (forward).
+  dtype, f32 accumulation, output in v's dtype; and ``attention_bwd_plain``,
+  the Pallas backward's formulas written out in f32;
+- hand-written CUDA kernels that replace the Pallas TPU kernels
+  ``paired_attention_pallas`` / ``self_attention_pallas``: the forwards in
+  ``csrc/attention.cu``, the backwards in ``csrc/attention_bwd.cu``.
 
-Dispatch: a CPU tensor takes the plain version.  A CUDA tensor launches the
-kernel, at bf16 and f32, or raises; it never falls back.  ``need_weights=True``
-takes the plain version on any device, since only it forms probabilities.
-``LAUNCHES`` counts kernel launches per wrapper.
+Dispatch: a CPU tensor takes the plain version, which autograd
+differentiates (what the JAX package runs on the CPU).  A CUDA tensor launches
+the kernels, at bf16 and f32, or raises; it never falls back.  When autograd
+needs a gradient, the CUDA forward runs inside a ``torch.autograd.Function``
+(``_PairedAttention`` / ``_SelfAttention``) that also stores each row's
+log-sum-exp, and whose backward launches the backward kernel; otherwise
+(serving under ``no_grad``) it saves and writes nothing extra.
+``need_weights=True`` takes the plain version on any device, since only it
+forms probabilities.  ``LAUNCHES`` counts kernel launches per wrapper: one
+per forward call and one per backward call.
 
 Operands are (B, H, L, D) queries and (B, H, S, D) keys/values.
 """
@@ -23,17 +31,19 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from druglamp_tpu_torch.kernels import build
 
 KERNEL_SOURCE = "attention"
+BWD_KERNEL_SOURCE = "attention_bwd"
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: Dict[str, int] = {"paired_attention_fwd": 0, "self_attention_fwd": 0}
+LAUNCHES: Dict[str, int] = {"paired_attention_fwd": 0, "self_attention_fwd": 0,
+                            "paired_attention_bwd": 0, "self_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -60,17 +70,56 @@ def self_attention_plain(q, k, v) -> torch.Tensor:
     return attention_plain(q, k, v)[0]
 
 
+def attention_bwd_plain(q, k, v, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of softmax(QKᵀ/√D)V for one product, f32 (the Pallas
+    ``_bwd_kernel``'s ``grads``): P recomputed; dV = PᵀdO; dP = dO Vᵀ;
+    dS = P ⊙ (dP − rowsum(dP ⊙ P)); dQ = dS K/√D; dK = dSᵀQ/√D."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return torch.matmul(ds, k) * scale, torch.matmul(ds.transpose(-1, -2), q) * scale, dv
+
+
+def paired_attention_bwd_plain(q, k, v, q_other, do1, do2):
+    """→ (dq, dk, dv, dq_other) in the inputs' dtype; dK and dV are summed over
+    the two products in f32 before rounding, as the Pallas kernel does."""
+    dq, dk1, dv1 = attention_bwd_plain(q, k, v, do1)
+    dqo, dk2, dv2 = attention_bwd_plain(q_other, k, v, do2)
+    return dq.to(q.dtype), (dk1 + dk2).to(k.dtype), (dv1 + dv2).to(v.dtype), dqo.to(q.dtype)
+
+
+def self_attention_bwd_plain(q, k, v, do):
+    """→ (dq, dk, dv) in the inputs' dtype."""
+    return tuple(t.to(q.dtype) for t in attention_bwd_plain(q, k, v, do))
+
+
 # --- CUDA kernel wrappers -------------------------------------------------------
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.library(KERNEL_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    # (q, k, v, q_other, o1, o2, bh, L, S, D, dtype, stream) / (q, k, v, o, ...)
-    lib.paired_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    # (q, k, v, q_other, o1, o2, lse, bh, L, S, D, dtype, stream) / (q, k, v, o, lse, ...)
+    lib.paired_attention_fwd.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.paired_attention_fwd.restype = i
-    lib.self_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.self_attention_fwd.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.self_attention_fwd.restype = i
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.library(BWD_KERNEL_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # (q, k, v, q_other, do1, do2, lse, delta, dq, dk, dv, dq_other, bh, L, S, D, dtype, stream)
+    lib.paired_attention_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
+    lib.paired_attention_bwd.restype = i
+    # (q, k, v, do, lse, delta, dq, dk, dv, bh, L, S, D, dtype, stream)
+    lib.self_attention_bwd.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.self_attention_bwd.restype = i
     return lib
 
 
@@ -103,23 +152,108 @@ def _check_rc(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_other: Optional[torch.Tensor] = None, with_lse: bool = False
+                   ) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
+    """Launch the forward kernel (paired when ``q_other`` is given) on checked
+    CUDA operands → (outputs, lse).  ``lse`` is the (NQ, B·H, L) f32 log-sum-exp
+    of each row's scaled logits when ``with_lse``, else None."""
+    B, H, L, D = q.shape
+    paired = q_other is not None
+    name = "paired_attention_fwd" if paired else "self_attention_fwd"
+    outs = (torch.empty_like(q), torch.empty_like(q)) if paired else (torch.empty_like(q),)
+    lse = (torch.empty((len(outs), B * H, L), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    args = (q, k, v) + ((q_other,) if paired else ()) + outs + (lse,)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(_library(), name)(*map(_ptr, args), B * H, L, k.shape[2], D,
+                                       _DTYPE_CODES[q.dtype], stream)
+    _check_rc(name, rc)
+    LAUNCHES[name] += 1
+    return outs, lse
+
+
+def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_other: Optional[torch.Tensor], lse: torch.Tensor,
+                    grads: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel on checked CUDA operands, the forward's
+    ``lse`` and the incoming gradients (one per output) → (dq, dk, dv) or,
+    paired, (dq, dk, dv, dq_other)."""
+    B, H, L, D = q.shape
+    paired = q_other is not None
+    name = "paired_attention_bwd" if paired else "self_attention_bwd"
+    if len(grads) != (2 if paired else 1) or any(
+            g.shape != q.shape or g.dtype != q.dtype or g.device != q.device
+            or not g.is_contiguous() for g in grads):
+        raise ValueError(f"{name}: incoming gradients must be contiguous, one per output, "
+                         f"of the queries' shape {tuple(q.shape)} and dtype {q.dtype}")
+    if lse.shape != (len(grads), B * H, L) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be the forward's ({len(grads)}, {B * H}, {L}) f32")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    if paired:
+        args = (q, k, v, q_other, *grads, lse, delta, dq, dk, dv, torch.empty_like(q))
+    else:
+        args = (q, k, v, *grads, lse, delta, dq, dk, dv)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(_bwd_library(), name)(*map(_ptr, args), B * H, L, k.shape[2], D,
+                                           _DTYPE_CODES[q.dtype], stream)
+    _check_rc(name, rc)
+    LAUNCHES[name] += 1
+    return (dq, dk, dv, args[-1]) if paired else (dq, dk, dv)
+
+
+class _PairedAttention(torch.autograd.Function):
+    """The paired forward kernel, differentiated by the paired backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_other):
+        outs, lse = launch_forward(q, k, v, q_other, with_lse=True)
+        ctx.save_for_backward(q, k, v, q_other, lse)
+        return outs
+
+    @staticmethod
+    def backward(ctx, do1, do2):
+        q, k, v, q_other, lse = ctx.saved_tensors
+        # the gradients arrive through _merge_heads as transposed views
+        return launch_backward(q, k, v, q_other, lse, (do1.contiguous(), do2.contiguous()))
+
+
+class _SelfAttention(torch.autograd.Function):
+    """The self forward kernel, differentiated by the self backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        (out,), lse = launch_forward(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        return launch_backward(q, k, v, None, lse, (do.contiguous(),))
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def paired_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_other: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(softmax(QKᵀ/√D)V, softmax(Q_oKᵀ/√D)V) against one shared K/V."""
     if q.device.type == "cpu":
         return paired_attention_plain(q, k, v, q_other)
     check_operands(q, k, v, q_other)
-    B, H, L, D = q.shape
-    o1, o2 = torch.empty_like(q), torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _library().paired_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_other.data_ptr(),
-            o1.data_ptr(), o2.data_ptr(), B * H, L, k.shape[2], D,
-            _DTYPE_CODES[q.dtype], stream)
-    _check_rc("paired_attention_fwd", rc)
-    LAUNCHES["paired_attention_fwd"] += 1
-    return o1, o2
+    if _needs_grad(q, k, v, q_other):
+        return _PairedAttention.apply(q, k, v, q_other)
+    return launch_forward(q, k, v, q_other)[0]
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -127,16 +261,9 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     if q.device.type == "cpu":
         return self_attention_plain(q, k, v)
     check_operands(q, k, v)
-    B, H, L, D = q.shape
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _library().self_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B * H, L, k.shape[2], D, _DTYPE_CODES[q.dtype], stream)
-    _check_rc("self_attention_fwd", rc)
-    LAUNCHES["self_attention_fwd"] += 1
-    return o
+    if _needs_grad(q, k, v):
+        return _SelfAttention.apply(q, k, v)
+    return launch_forward(q, k, v)[0][0]
 
 
 # --- cores called by PMMA ---------------------------------------------------------

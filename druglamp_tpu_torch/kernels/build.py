@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``.
-A library's file name carries a hash of its source and the flags, so an
+A library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an
 edited source is rebuilt and a stale library is never loaded.  Sources are
 compiled in parallel (one ``nvcc`` each, all started together).  The output
 goes to ``druglamp_tpu_torch/_build/``, which git ignores.
@@ -46,8 +47,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``csrc/<name>.cu``; its name hashes the source, every
+    shared header of ``csrc/`` and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

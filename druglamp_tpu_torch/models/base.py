@@ -90,16 +90,16 @@ class DrugLAMPBase(nn.Module):
     def _encode_drug_llm(self, xd: torch.Tensor) -> torch.Tensor:
         return self.lin_d2(self.d_norm(gelu(self.lin_d1(xd))))
 
-    def _fuse_v(self, vp, vd, need_raw: bool):
+    def _fuse_v(self, vp, vd, need_raw: bool, generator=None):
         mv, A_v = self.v_gca(vp, vd, vd, need_raw=need_raw)
         mv = torch.cat([vp, mv], dim=2)
-        mv = self.v_mhla(mv) + mv
+        mv = self.v_mhla(mv, generator) + mv
         return self.v_gca_norm(mv), A_v
 
-    def _fuse_x(self, xp, xd, need_raw: bool):
+    def _fuse_x(self, xp, xd, need_raw: bool, generator=None):
         mx, A_x = self.x_gca(xp, xd, xd, need_raw=need_raw)
         mx = torch.cat([xp, mx], dim=2)
-        mx = self.x_mhla(mx) + mx
+        mx = self.x_mhla(mx, generator) + mx
         return self.x_gca_norm(mx), A_x
 
     def _classify(self, f: torch.Tensor) -> torch.Tensor:

@@ -8,13 +8,14 @@ All variants take the fixed-shape batch dict of tensors
 
 and return a dict: ``score`` (B,1) f32, the GCA raw logits ``A_v_gca`` /
 ``A_x_gca`` when ``need_attn``, and the PMMA maps ``attn`` / ``guided_attn``
-when the model was built with ``vis``.  The SSL and CM heads are not ported
-yet.
+when the model was built with ``vis``.  In train mode (``model.train()``)
+BatchNorm uses and updates batch statistics and dropout draws its masks from
+``generator``.  The SSL and CM heads are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -29,15 +30,16 @@ def _outputs(score, A_v, A_x, attn, guided_attn) -> Dict[str, Any]:
 class DrugLAMP(DrugLAMPBase):
     """Full 4-stream model."""
 
-    def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         vd, vp = self._extract(batch)
         xp, xd = self._llm_inputs(batch)
         xp = self._encode_prot_llm(self._site_pool(xp))
         xd = self._encode_drug_llm(xd)
-        mv, A_v = self._fuse_v(vp, vd, need_raw=need_attn)
-        mx, A_x = self._fuse_x(xp, xd, need_raw=need_attn)
+        mv, A_v = self._fuse_v(vp, vd, need_attn, generator)
+        mx, A_x = self._fuse_x(xp, xd, need_attn, generator)
         # the LLM stream is PMMA's "prot" input
-        f, attn, guided_attn = self.pmma(mx, mv)
+        f, attn, guided_attn = self.pmma(mx, mv, generator)
         return _outputs(self._classify(f), A_v, A_x, attn, guided_attn)
 
 
@@ -46,10 +48,11 @@ class DrugLAMPwoLLM(DrugLAMPBase):
 
     uses_llm = False
 
-    def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         vd, vp = self._extract(batch)
-        mv, A_v = self._fuse_v(vp, vd, need_raw=need_attn)
-        f, attn, guided_attn = self.pmma(mv, mv)
+        mv, A_v = self._fuse_v(vp, vd, need_attn, generator)
+        f, attn, guided_attn = self.pmma(mv, mv, generator)
         return _outputs(self._classify(f), A_v, None, attn, guided_attn)
 
 

@@ -102,6 +102,20 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training, keep each entry with probability
+    1 − rate and scale the kept ones by 1/(1 − rate) in x's dtype; otherwise
+    the identity.  The mask is drawn from ``generator`` (on x's device), so
+    two runs from one seed drop the same entries; ``None`` takes torch's
+    default generator."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``a @ b`` on operands rounded to ``dtype``, accumulated and returned in
     f32 (JAX's ``preferred_element_type=jnp.float32``)."""

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from druglamp_tpu_torch.nn.layers import Dense, gelu
+from druglamp_tpu_torch.nn.layers import Dense, dropout, gelu
 
 _ACTIVATIONS = {"tanh": torch.tanh, "relu": F.relu, "gelu": gelu}
 
@@ -28,11 +28,12 @@ class MultiHeadLinearAttention(nn.Module):
         self.act = _ACTIVATIONS[activation]
         self.lin1 = Dense(d_model, d_diff, dtype=dtype)
         self.lin2 = Dense(d_diff, nhead, dtype=dtype)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_rate = dropout
 
-    def forward(self, v: torch.Tensor) -> torch.Tensor:
-        attn = self.dropout(self.act(self.lin1(v)))
-        attn = self.dropout(self.lin2(attn))
+    def forward(self, v: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in train mode."""
+        attn = dropout(self.act(self.lin1(v)), self.dropout_rate, self.training, generator)
+        attn = dropout(self.lin2(attn), self.dropout_rate, self.training, generator)
         attn = torch.softmax(attn.float(), dim=1).to(v.dtype).transpose(1, 2)   # (B, H, L)
         B, L, E = v.shape
         H = self.nhead

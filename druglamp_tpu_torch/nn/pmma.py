@@ -10,6 +10,8 @@
 - Block 2 concatenates the streams on features (256→512); blocks 2–3 are plain
   4-head self-attention at width 512.
 - Final LayerNorm.  Every LayerNorm in PMMA uses eps 1e-6.
+- Dropout (train mode only) on the two embeddings and inside each MLP, with
+  masks drawn from the ``generator`` passed to ``forward``.
 
 The attention cores go through ``kernels/attention.py``: the hand-written
 CUDA kernels on a CUDA tensor, the plain PyTorch version on the CPU.
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from druglamp_tpu_torch.kernels import attention
-from druglamp_tpu_torch.nn.layers import Dense, LayerNorm, gelu
+from druglamp_tpu_torch.nn.layers import Dense, LayerNorm, dropout, gelu
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -49,11 +51,11 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Dense(hidden_size, 4 * hidden_size, dtype=dtype, init="xavier")
         self.fc2 = Dense(4 * hidden_size, hidden_size, dtype=dtype, init="xavier")
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dropout(gelu(self.fc1(x)))
-        return self.dropout(self.fc2(x))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(gelu(self.fc1(x)), self.dropout_rate, self.training, generator)
+        return dropout(self.fc2(x), self.dropout_rate, self.training, generator)
 
 
 class PairedAttention(nn.Module):
@@ -131,16 +133,17 @@ class PMMABlock(nn.Module):
         else:
             self.attn = SelfAttention(E, num_heads, vis, dtype)
 
-    def forward(self, prot: torch.Tensor, mol: Optional[torch.Tensor] = None):
+    def forward(self, prot: torch.Tensor, mol: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         if not self.mm:
             x, w = self.attn(self.attention_norm(prot))
             x = x + prot
-            return self.ffn(self.ffn_norm(x)) + x, None, w, None
+            return self.ffn(self.ffn_norm(x), generator) + x, None, w, None
 
         p, m, w, gw = self.attn(self.attention_norm(prot), self.att_norm_mol(mol))
         p, m = p + prot, m + mol
-        p = self.ffn(self.ffn_norm(p)) + p
-        m = self.ffn_mol(self.ffn_norm_mol(m)) + m
+        p = self.ffn(self.ffn_norm(p), generator) + p
+        m = self.ffn_mol(self.ffn_norm_mol(m), generator) + m
         return p, m, w, gw
 
 
@@ -158,26 +161,28 @@ class PairedMultimodalAttention(nn.Module):
         self.pe_prot = nn.Parameter(torch.zeros(1, feat_len, E))
         self.pe_mol = nn.Parameter(torch.zeros(1, mol_len, E))
         self.mol_embeddings = Dense(E, E, dtype=dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         for i in range(num_layers):
             block = (PMMABlock(E, num_heads, True, dropout_rate, vis, dtype) if i < 2
                      else PMMABlock(2 * E, num_heads, False, dropout_rate, vis, dtype))
             self.add_module(f"block_{i}", block)
         self.encoder_norm = _ln(2 * E)
 
-    def forward(self, prot: torch.Tensor, mol: torch.Tensor
+    def forward(self, prot: torch.Tensor, mol: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]], List[Optional[torch.Tensor]]]:
-        mol = self.dropout(self.mol_embeddings(mol) + self.pe_mol)
-        x = self.dropout(prot + self.pe_prot)
+        rate, train = self.dropout_rate, self.training
+        mol = dropout(self.mol_embeddings(mol) + self.pe_mol, rate, train, generator)
+        x = dropout(prot + self.pe_prot, rate, train, generator)
         weights, guided_weights = [], []
         for i in range(self.num_layers):
             block = getattr(self, f"block_{i}")
             if i < 2:
-                x, mol, w, gw = block(x, mol)
+                x, mol, w, gw = block(x, mol, generator)
             else:
                 if i == 2:
                     x = torch.cat([x, mol], dim=-1)
-                x, _, w, gw = block(x)
+                x, _, w, gw = block(x, generator=generator)
             if self.vis:
                 weights.append(w)
                 guided_weights.append(gw)

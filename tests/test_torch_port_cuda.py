@@ -1,5 +1,7 @@
-"""The port's hand-written CUDA kernels on a card: each against its plain
-PyTorch version, the wrappers' refusals, and the serving path's launch counts.
+"""The port's hand-written CUDA kernels on a card: each forward and backward
+against its plain PyTorch version, the wrappers' refusals, the gradients that
+reach PMMA's projections through the kernels, and the launch counts of the
+serving path and of a full-width train step.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports neither JAX nor the JAX package, so on a machine with a card and
@@ -87,7 +89,8 @@ def test_serving_path_launches_the_kernels(cuda):
              ("CC(=O)NC1=CC=C(C=C1)O", "ACDEFGHIKLMNPQRSTVWY" * 51)]
     attention.reset_launch_counts()
     probs = predictor.predict_pairs(pairs)
-    assert attention.LAUNCHES == {"paired_attention_fwd": 4, "self_attention_fwd": 2}
+    assert attention.LAUNCHES == {"paired_attention_fwd": 4, "self_attention_fwd": 2,
+                                  "paired_attention_bwd": 0, "self_attention_bwd": 0}
     assert probs.shape == (3,) and np.all(np.isfinite(probs))
     saved = attention.paired_attention, attention.self_attention
     attention.paired_attention = attention.paired_attention_plain
@@ -97,3 +100,90 @@ def test_serving_path_launches_the_kernels(cuda):
     finally:
         attention.paired_attention, attention.self_attention = saved
     np.testing.assert_allclose(probs, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,L,S,D,paired", [
+    (16, 4, 256, 256, 64, True), (16, 4, 256, 256, 128, False),
+    (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
+])
+def test_backward_kernel_matches_plain(cuda, dtype, B, H, L, S, D, paired):
+    """Gradients through the autograd Function (forward and backward kernels)
+    against the plain backward, with incoming gradients made non-contiguous
+    the way _merge_heads makes them.  f32: atol = rtol = 2e-5.  bf16: against
+    the plain backward run in f32 on the same bf16 inputs, within one bf16
+    ulp at each gradient's largest magnitude (the kernel computes in f32 and
+    rounds once)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rand = lambda n: torch.randn(B, H, n, D, generator=g, device=cuda).to(dtype)  # noqa: E731
+    ins = [rand(L), rand(S), rand(S)] + ([rand(L)] if paired else [])
+    dos = [torch.randn(B, L, H, D, generator=g, device=cuda).to(dtype).transpose(1, 2)
+           for _ in range(2 if paired else 1)]
+    assert not dos[0].is_contiguous()
+    leaves = [t.clone().requires_grad_() for t in ins]
+    before = dict(attention.LAUNCHES)
+    outs = attention.paired_attention(*leaves) if paired else (attention.self_attention(*leaves),)
+    got = torch.autograd.grad(outs, leaves, dos)
+    torch.cuda.synchronize()
+    name = "paired_attention_bwd" if paired else "self_attention_bwd"
+    assert attention.LAUNCHES[name] == before[name] + 1
+    plain = attention.paired_attention_bwd_plain if paired else attention.self_attention_bwd_plain
+    if dtype == torch.float32:
+        for a, b in zip(got, plain(*ins, *dos)):
+            torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+    else:
+        ref = plain(*(t.float() for t in ins), *(t.float() for t in dos))
+        for a, b in zip(got, ref):
+            assert a.dtype == torch.bfloat16
+            assert (a.float() - b).abs().max().item() <= _bf16_ulp(b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_projection_gets_a_gradient_through_the_kernels(cuda, dtype):
+    """One backward through a paired and a self PMMA block on the card: every
+    query/key/value weight gets a non-zero gradient (the forward kernels'
+    outputs are attached to autograd), and the backward kernels ran."""
+    from druglamp_tpu_torch.nn.pmma import PMMABlock
+
+    torch.manual_seed(0)
+    paired = PMMABlock(256, 4, mm=True, dropout_rate=0.0, dtype=dtype).to(cuda)
+    single = PMMABlock(512, 4, mm=False, dropout_rate=0.0, dtype=dtype).to(cuda)
+    prot, mol = (torch.randn(2, 256, 256, device=cuda) for _ in range(2))
+    attention.reset_launch_counts()
+    p, m, _, _ = paired(prot, mol)
+    x, _, _, _ = single(torch.cat([p, m], dim=-1))
+    x.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"paired_attention_fwd": 2, "self_attention_fwd": 1,
+                                  "paired_attention_bwd": 2, "self_attention_bwd": 1}
+    names = [f"attn.{n}.weight" for n in ("query", "key", "value", "query_mol", "key_mol",
+                                         "value_mol")]
+    for block, ns in ((paired, names), (single, names[:3])):
+        for n in ns:
+            grad = block.get_parameter(n).grad
+            assert grad is not None and torch.isfinite(grad).all() and grad.abs().max() > 0, n
+
+
+def test_full_width_train_step_launches_the_kernels(cuda):
+    """Config() at full width, bf16, batch 16 (compact, decoded on the card):
+    one step launches paired 4, self 2 forward and 4, 2 backward kernels."""
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import compact_batch
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+    from druglamp_tpu_torch.utils.synthetic import make_batch
+
+    cfg = Config()
+    model = build_model("DrugLAMP", cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    host = make_batch(cfg, 16, seed=0, n_drug_feature=384, n_prot_feature=640)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in compact_batch(host, (host["d_fill"] == 0).sum(1)).items()}
+    state, step = TrainState.create(model), make_train_step(model, False, False)
+    attention.reset_launch_counts()
+    out = step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"paired_attention_fwd": 4, "self_attention_fwd": 2,
+                                  "paired_attention_bwd": 4, "self_attention_bwd": 2}
+    assert torch.isfinite(out.cls_loss) and out.probs.shape == (16,)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())

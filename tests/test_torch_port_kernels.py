@@ -1,13 +1,15 @@
 """The port's attention module (druglamp_tpu_torch/kernels/attention.py) against
-the JAX package's Pallas kernels, run in interpret mode on the CPU as
-tests/test_kernels.py runs them, plus the dispatch rules, the operand checks
-and the build's library naming.  The CUDA kernels themselves are tested on a
+the JAX package's Pallas kernels, forward and backward, run in interpret mode
+on the CPU as tests/test_kernels.py runs them; the autograd wiring of the
+CUDA path with the launches emulated on the CPU; the dispatch rules, the
+operand checks and the build's library naming.  The CUDA kernels themselves are tested on a
 card by tests/test_torch_port_cuda.py."""
 
 import math
 import os
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 import druglamp_tpu.kernels.paired_attention_pallas as pk
 from druglamp_tpu.kernels.paired_attention import _attn
 from druglamp_tpu_torch.kernels import attention, build
+from druglamp_tpu_torch.nn.pmma import PMMABlock
 
 
 @pytest.fixture(autouse=True)
@@ -92,7 +95,8 @@ def test_need_weights_returns_probabilities_without_launching():
     out, w = attention.self_attention_core(q, k, v, need_weights=True)
     assert w.shape == (B, H, L, S)
     assert attention.self_attention_core(q, k, v)[1] is None
-    assert attention.LAUNCHES == {"paired_attention_fwd": 0, "self_attention_fwd": 0}
+    assert attention.LAUNCHES == {"paired_attention_fwd": 0, "self_attention_fwd": 0,
+                                  "paired_attention_bwd": 0, "self_attention_bwd": 0}
 
 
 def _ok_operands(D=64, dtype=torch.float32):
@@ -139,3 +143,99 @@ def test_build_without_nvcc_raises():
         pytest.skip("library already built")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
+
+
+# --- backward ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("paired,L,S,D", [
+    (True, 32, 32, 16), (True, 24, 40, 64), (False, 32, 32, 16), (False, 20, 36, 128),
+])
+def test_backward_plain_matches_pallas_backward(paired, L, S, D):
+    """The plain backward against the Pallas backward kernel (its custom vjp)
+    on the same incoming gradients: 2e-5, the gradient tolerance of
+    tests/test_kernels.py."""
+    B, H = 2, 2
+    shapes = [(B, H, L, D), (B, H, S, D), (B, H, S, D)] + [(B, H, L, D)] * (3 if paired else 1)
+    ops = _operands(shapes, seed=3)
+    ins, dos = ops[:4] if paired else ops[:3], ops[4:] if paired else ops[3:]
+    fn = pk.paired_attention_pallas if paired else pk.self_attention_pallas
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, ins))
+    ref = vjp(tuple(map(jnp.asarray, dos)) if paired else jnp.asarray(dos[0]))
+    plain = attention.paired_attention_bwd_plain if paired else attention.self_attention_bwd_plain
+    got = plain(*map(_t, ins), *map(_t, dos))
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5, atol=2e-5)
+
+
+def _emulated_forward(q, k, v, q_other=None, with_lse=False):
+    """launch_forward's contract on the CPU: outputs and the (NQ, B·H, L) lse."""
+    qs = [q] if q_other is None else [q, q_other]
+    outs = tuple(attention.attention_plain(x, k, v)[0] for x in qs)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    lse = torch.stack([torch.logsumexp(torch.matmul(x, k.transpose(-1, -2)) * scale, -1)
+                       .reshape(-1, q.shape[2]) for x in qs])
+    return outs, (lse if with_lse else None)
+
+
+def _emulated_backward(q, k, v, q_other, lse, grads):
+    assert lse.shape == (len(grads), q.shape[0] * q.shape[1], q.shape[2])
+    assert all(g.is_contiguous() for g in grads)
+    if q_other is None:
+        return attention.self_attention_bwd_plain(q, k, v, *grads)
+    return attention.paired_attention_bwd_plain(q, k, v, q_other, *grads)
+
+
+@pytest.fixture
+def emulated_kernels(monkeypatch):
+    """Route the PMMA cores through the autograd Functions of the CUDA path,
+    with the kernel launches emulated on the CPU."""
+    monkeypatch.setattr(attention, "launch_forward", _emulated_forward)
+    monkeypatch.setattr(attention, "launch_backward", _emulated_backward)
+    monkeypatch.setattr(attention, "paired_attention",
+                        lambda q, k, v, qo: attention._PairedAttention.apply(q, k, v, qo))
+    monkeypatch.setattr(attention, "self_attention",
+                        lambda q, k, v: attention._SelfAttention.apply(q, k, v))
+
+
+@pytest.mark.parametrize("mm", [True, False])
+def test_autograd_function_gives_every_projection_its_gradient(emulated_kernels, mm):
+    """A PMMA block's backward through the autograd Functions: every
+    query/key/value weight gets the gradient that autograd gives through the
+    plain version (the incoming gradients arrive non-contiguous through
+    _merge_heads; q_m feeds both paired calls and its gradients add up)."""
+    E, L = 128, 24
+    r = np.random.RandomState(4)
+    block = PMMABlock(E, 2, mm=mm, dropout_rate=0.0)
+    for p in block.parameters():
+        p.data = torch.from_numpy(0.1 * r.randn(*p.shape).astype(np.float32))
+    inputs = [_t(r.randn(2, L, E).astype(np.float32)) for _ in range(2 if mm else 1)]
+    names = ([f"attn.{n}.weight" for n in ("query", "key", "value", "query_mol", "key_mol",
+                                          "value_mol")] if mm
+             else [f"attn.{n}.weight" for n in ("query", "key", "value")])
+
+    def grads():
+        block.zero_grad(set_to_none=True)
+        p, m, _, _ = block(*inputs)
+        ((p * p).sum() + (0.0 if m is None else (m * m * 0.5).sum())).backward()
+        return {n: block.get_parameter(n).grad.clone() for n in names}
+
+    got = grads()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(attention, "paired_attention", attention.paired_attention_plain)
+        mp.setattr(attention, "self_attention", attention.self_attention_plain)
+        ref = grads()
+    for n in names:
+        assert got[n].abs().max() > 0, n
+        torch.testing.assert_close(got[n], ref[n], rtol=2e-5, atol=1e-7, msg=n)
+
+
+def test_cpu_tensors_take_the_differentiable_plain_version():
+    B, H, L, S, D = 1, 2, 8, 12, 64
+    q, k, v, qo = (x.requires_grad_() for x in map(
+        _t, _operands([(B, H, L, D), (B, H, S, D), (B, H, S, D), (B, H, L, D)], seed=5)))
+    attention.reset_launch_counts()
+    s, g = attention.paired_attention(q, k, v, qo)
+    (s.sum() + g.sum()).backward()
+    assert all(t.grad is not None and t.grad.abs().max() > 0 for t in (q, k, v, qo))
+    assert set(attention.LAUNCHES.values()) == {0}

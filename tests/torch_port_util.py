@@ -5,6 +5,7 @@ seeded weights built in the JAX package, carried into the port through
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,10 @@ from druglamp_tpu.utils.synthetic import make_batch, tiny_config
 from druglamp_tpu_torch.config import config_from_dict
 from druglamp_tpu_torch.convert import from_jax_params
 from druglamp_tpu_torch.models.registry import build_model as port_build_model
+
+# The tiny models gain nothing from intra-op threads, and the suite runs
+# several pytest workers beside JAX's own thread pools on the same cores.
+torch.set_num_threads(1)
 
 ND, NP = 24, 40       # LLM embedding widths of the tiny models
 SCORE_ATOL = 2e-5     # forward-score tolerance of docs/PARITY.md (fp32)
@@ -54,8 +59,10 @@ def random_stats(stats, rng: np.random.RandomState):
 def jax_variables(model, cfg, seed: int = 0):
     """Seeded flax params (perturbed) and random BN stats, as numpy trees."""
     batch = jax.tree.map(jnp.asarray, make_batch(cfg, 4, n_drug_feature=ND, n_prot_feature=NP))
-    variables = model.init({"params": jax.random.key(seed), "dropout": jax.random.key(1)},
-                           batch, jax.random.key(2), method="init_all")
+    # jitted: the eager init of the whole tree (SSL/CM heads included) takes ~1 min
+    init = jax.jit(functools.partial(model.init, method="init_all"))
+    variables = init({"params": jax.random.key(seed), "dropout": jax.random.key(1)},
+                     batch, jax.random.key(2))
     rng = np.random.RandomState(seed)
     return perturb(variables["params"], rng), random_stats(variables["batch_stats"], rng)
 
