@@ -52,6 +52,28 @@ printing its own lines; any failure exits non-zero and prints no result:
    and each backward kernel beside its bound, its plain version and the
    yardstick ``F.scaled_dot_product_attention``'s backward (timed in turns
    with the kernel; its kernels' names show the backend it picked).
+8. packed GCN — ``gcn_packed_matmul`` (``csrc/gcn_packed.cu``) against its
+   plain version, forward and backward through its autograd Function, at
+   the training (16, 512, 128), eval (64, 512, 128) and a small ragged
+   (3, 256, 64) shape: f32 atol = rtol = 1e-5; bf16 y within 1e-5 of its
+   largest |y| and dx within one bf16 ulp.
+9. epoch   — the device-resident dataset: a CSV dataset of 37 real drugs,
+   64 proteins of 50–1022 residues, 512 training and 128 validation pairs
+   (all from SEED), an ``EmbeddingCache`` of seeded embeddings at the real
+   token lengths, ``DeviceEmbeddingStore`` and ``DeviceDataStore`` on the
+   card.  DrugLAMP at ``Config()`` (bf16, seeded weights) with
+   ``DRUGLAMP_PACKED_GCN=1``: one epoch of ``make_epoch_step_gather`` (32
+   steps at batch 16 in one call), asserting 3 + 3 GCN and 4/2/4/2
+   attention launches per step, finite losses and non-zero gradients on
+   every GCN weight; ``make_eval_scan_gather`` on the validation split at
+   batch 64 (3 GCN and 4/2 attention launches per batch, AUROC and AUPRC).
+   The first 3 steps at f32, dropout 0: through the kernel, within 1e-5 of
+   the plain GCN and within rtol 2e-4 of the dense adjacency.  Then the
+   epoch's pairs/s (CUDA events), host time to issue it, peak memory, and
+   from one profiled epoch the device-busy share, the host → device bytes
+   and the count of host reads of device values (must be 0; tables in
+   ``chiprun_out/epoch_profile.txt``); the kernel beside its bound, its
+   plain version and the dense ``torch.bmm`` yardstick on real batches.
 
 The second-to-last line is one JSON object with the kernel records; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -87,6 +109,38 @@ SMILES = [
     "CN(C)C(=N)N=C(N)N",                                         # metformin
     "COC1=C(C=C2C(=C1)N=CN=C2NC3=CC(=C(C=C3)F)Cl)OCCCN4CCOCC4",  # gefitinib
     "C1=CC=C(C=C1)C2=CC(=O)C3=C(C=C(C=C3O2)O)O",                 # chrysin
+]
+# More real drugs for the training epoch's dataset (phase 9).
+EPOCH_SMILES = SMILES + [
+    "CC(C)NCC(O)COC1=CC=CC2=CC=CC=C21",                          # propranolol
+    "CN1CCC[C@H]1C2=CN=CC=C2",                                   # nicotine
+    "OC(=O)CC1=CC=CC=C1NC1=C(Cl)C=CC=C1Cl",                      # diclofenac
+    "CN1CCN(CC1)C2=NC3=CC=CC=C3NC4=C2C=C(C=C4)Cl",               # clozapine
+    "NC(=O)C1=CC=CN=C1",                                         # nicotinamide
+    "CC(C)(C)NCC(O)C1=CC(=C(C=C1)O)CO",                          # salbutamol
+    "CN1C(=O)CN=C(C2=C1C=CC(=C2)Cl)C3=CC=CC=C3",                 # diazepam
+    "CCN(CC)CC(=O)NC1=C(C)C=CC=C1C",                             # lidocaine
+    "OC(=O)C1=CC=CC=C1O",                                        # salicylic acid
+    "CC12CCC3C(C1CCC2O)CCC4=C3C=CC(=C4)O",                       # estradiol
+    "CN1CCC23C4C1CC5=C2C(=C(C=C5)O)OC3C(C=C4)O",                 # morphine
+    "CC(C)CC(CC(=O)O)CN",                                        # pregabalin
+    "C1CCC(CC1)(CC(=O)O)CN",                                     # gabapentin
+    "CC(CS)C(=O)N1CCCC1C(=O)O",                                  # captopril
+    "CCOC(=O)C1=C(NC(=C(C1C2=CC=CC=C2Cl)C(=O)OC)C)COCCN",        # amlodipine
+    "CN(C)CCCN1C2=CC=CC=C2CCC3=CC=CC=C31",                       # imipramine
+    "CC(C)C1=C(C(=C(N1CCC(CC(CC(=O)O)O)O)C2=CC=C(C=C2)F)C3=CC=CC=C3)C(=O)NC4=CC=CC=C4",  # atorvastatin
+    "CS(=O)(=O)NC1=C(C=C(C=C1)[N+](=O)[O-])OC2=CC=CC=C2",        # nimesulide
+    "C1=CC=C2C(=C1)C(=CN2)CCN",                                  # tryptamine
+    "CC(C)NCC(COC1=CC=C(C=C1)CC(N)=O)O",                         # atenolol
+    "COC1=CC2=C(C=C1)N=C(N2)S(=O)CC3=NC=C(C(=C3C)OC)C",          # omeprazole
+    "CC(C)(C)C1=CC=C(C=C1)C(O)CCCN2CCC(CC2)C(O)(C3=CC=CC=C3)C4=CC=CC=C4",  # terfenadine
+    "CC(=O)NC1=NN=C(S1)S(N)(=O)=O",                              # acetazolamide
+    "CN1C2CCC1CC(C2)OC(=O)C(CO)C3=CC=CC=C3",                     # atropine
+    "O=C1NC(=O)C(N1)(c1ccccc1)c1ccccc1",                         # phenytoin
+    "CN1C=NC(=C1SC2=NC=NC3=C2NC=N3)[N+](=O)[O-]",                # azathioprine
+    "CC(=O)CC(C1=CC=CC=C1)C2=C(C3=CC=CC=C3OC2=O)O",              # warfarin
+    "CNCCC(C1=CC=CC=C1)OC2=CC=C(C=C2)C(F)(F)F",                  # fluoxetine
+    "CC1=NN=C2N1C3=C(C=C(C=C3)Cl)C(=NC2)C4=CC=CC=C4",            # alprazolam
 ]
 AMINO = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -180,13 +234,17 @@ def plain_attention(attention):
         attention.paired_attention, attention.self_attention = saved
 
 
+def make_proteins(rng, n: int):
+    """n sequences of 50–1022 residues (the first the longest the model keeps)."""
+    lengths = rng.randint(50, 1023, size=n)
+    lengths[0] = 1022
+    return ["".join(rng.choice(list(AMINO), size=int(m))) for m in lengths]
+
+
 def make_pairs(n: int):
     import numpy as np
 
-    rng = np.random.RandomState(SEED)
-    lengths = rng.randint(50, 1023, size=n)
-    lengths[0] = 1022                                  # the longest the model keeps
-    seqs = ["".join(rng.choice(list(AMINO), size=int(m))) for m in lengths]
+    seqs = make_proteins(np.random.RandomState(SEED), n)
     return [(SMILES[i % len(SMILES)], seqs[i]) for i in range(n)]
 
 
@@ -643,6 +701,421 @@ def train_timing(torch, attention, model, state, step, batch):
         print("    " + line)
 
 
+GCN_CASES = [(TRAIN_B, 512, 128), (64, 512, 128), (3, 256, 64)]   # train, eval, ragged small
+
+
+def packed_graphs(np, B: int, N: int, rng):
+    """Random molecule-like graphs in the group-64 bits: ragged n_atoms,
+    about four bonds per real atom, the universal self-loop; → (packed, real)."""
+    from druglamp_tpu_torch.data.encoding import pack_adjacency
+
+    n_atoms = rng.randint(N // 8, N // 2, size=B)
+    adj = np.zeros((B, N, N), np.uint8)
+    ar = np.arange(N)
+    for b in range(B):
+        i, j = rng.randint(0, n_atoms[b], size=(2, 2 * n_atoms[b]))
+        adj[b, i, j] = adj[b, j, i] = 1
+        adj[b, ar, ar] = 1
+    return pack_adjacency(adj), (ar[None, :] < n_atoms[:, None]).astype(np.float32)
+
+
+def gcn_checks(torch, gcn):
+    """Phase 8: the packed GCN kernel against its plain version, forward and
+    backward through the autograd Function (the backward is a second launch
+    on dy cast to x's dtype; its plain version is the plain aggregate of that
+    cast dy, S being symmetric).  f32: atol = rtol = 1e-5.  bf16 x: the
+    products with A are exact and only the order of the f32 sums differs, so
+    y within 1e-5 of its largest |y|; dx is rounded to bf16 once, so within
+    one bf16 ulp of its largest magnitude.  Returns the bf16 forward max
+    |err| at the training shape."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 4)
+    train_err = None
+    for B, N, C in GCN_CASES:
+        packed, real = (torch.from_numpy(a).to(DEVICE) for a in packed_graphs(np, B, N, rng))
+        nrm = torch.rsqrt(torch.clamp(gcn.packed_degrees(packed, real), min=1.0))
+        n2r = nrm * nrm * real
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.randn(B, N, C).astype(np.float32)).to(DEVICE).to(dtype)
+            dy = torch.from_numpy(rng.randn(B, N, C).astype(np.float32)).to(DEVICE)
+            leaf = x.clone().requires_grad_()
+            y = gcn.gcn_packed_matmul(packed, nrm, n2r, leaf)
+            (dx,) = torch.autograd.grad(y, leaf, dy)
+            ref = gcn.gcn_packed_plain(packed, nrm, n2r, x)
+            ref_dx = gcn.gcn_packed_plain(packed, nrm, n2r, dy.to(dtype))
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            err_dx = (dx.float() - ref_dx).abs().max().item()
+            peak, peak_dx = ref.abs().max().item(), ref_dx.abs().max().item()
+            if dtype == torch.float32:
+                tol, tol_dx = 1e-5 + 1e-5 * peak, 1e-5 + 1e-5 * peak_dx
+                ok = torch.allclose(y, ref, atol=1e-5, rtol=1e-5) \
+                    and torch.allclose(dx, ref_dx, atol=1e-5, rtol=1e-5)
+            else:
+                tol, tol_dx = 1e-5 * peak, bf16_ulp(peak_dx)
+                ok = err <= tol and err_dx <= tol_dx
+            print(f"  gcn_packed_matmul {str(dtype).split('.')[-1]} B={B} N={N} C={C}: "
+                  f"y {err:.3e} (tol {tol:.3e}), dx {err_dx:.3e} (tol {tol_dx:.3e})", flush=True)
+            if not ok:
+                fail(f"gcn_packed_matmul disagrees with its plain version at {(B, N, C)} {dtype}")
+            if dtype == torch.bfloat16 and B == TRAIN_B:
+                train_err = err
+    return train_err
+
+
+EPOCH_PAIRS, VAL_PAIRS, N_PROTEINS, EVAL_B = 512, 128, 64, 64
+F32_LR = 1e-5
+
+
+def write_dataset(root: str):
+    """A CSV dataset in the repo's layout (``<root>/synthetic/random/{train,
+    val}.csv``): the real drugs of EPOCH_SMILES, N_PROTEINS proteins of
+    50–1022 residues, EPOCH_PAIRS training and VAL_PAIRS validation pairs,
+    all drawn from SEED."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 5)
+    prots = make_proteins(rng, N_PROTEINS)
+    split = os.path.join(root, "synthetic", "random")
+    os.makedirs(split)
+    for name, n in (("train.csv", EPOCH_PAIRS), ("val.csv", VAL_PAIRS)):
+        d = rng.randint(0, len(EPOCH_SMILES), size=n)
+        p = rng.randint(0, N_PROTEINS, size=n)
+        y = rng.randint(0, 2, size=n)
+        rows = [f"{EPOCH_SMILES[a]},{prots[b]},{c}" for a, b, c in zip(d, p, y)]
+        with open(os.path.join(split, name), "w") as f:
+            f.write("\n".join(["SMILES,Protein,Y"] + rows) + "\n")
+
+
+def build_epoch_data(cfg, root: str):
+    """Datasets, an embedding cache of seeded random embeddings at the real
+    token lengths (drugs len(SMILES)+2 rows capped at max_nodes, proteins
+    min(len, max_resis)+2), and both device stores on the card."""
+    import numpy as np
+
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+    from druglamp_tpu_torch.data.device_data import DeviceDataStore
+    from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
+
+    write_dataset(root)
+    kw = dict(max_nodes=cfg.drug.max_nodes, max_prot_resis=cfg.protein.max_resis,
+              seq_len=cfg.protein.seq_len)
+    train = DTIDataset(root, "synthetic", "random", "train.csv", **kw)
+    val = DTIDataset(root, "synthetic", "random", "val.csv", table=train.table, **kw)
+    table = train.table
+    cache = EmbeddingCache(os.path.join(root, "embeddings"), "synthetic")
+    rng = np.random.RandomState(SEED + 6)
+    for smi, o in table.drug2ord.items():
+        cache.put_drug(o, rng.randn(min(len(smi) + 2, cfg.drug.max_nodes), 384))
+    for seq, o in table.prot2ord.items():
+        cache.put_prot(o, rng.randn(min(len(seq), cfg.protein.max_resis) + 2, 640))
+    emb = DeviceEmbeddingStore.build(table, cache, max_drug_tokens=cfg.drug.max_nodes,
+                                     max_prot_len=cfg.protein.max_resis + 2, device=DEVICE)
+    if emb is None:
+        fail("DeviceEmbeddingStore over its budget")
+    data = DeviceDataStore.build(table, cfg.drug.max_nodes, cfg.protein.seq_len, True, True,
+                                 device=DEVICE)
+    emb_bytes = sum(t.numel() * t.element_size() for t in emb.tree.values())
+    print(f"  dataset: {table.n_drug} drugs, {table.n_prot} proteins, {len(train)} training "
+          f"and {len(val)} validation pairs; DeviceDataStore {data.nbytes()} bytes, "
+          f"DeviceEmbeddingStore {emb_bytes} bytes (drug_emb "
+          f"{tuple(emb.tree['drug_emb'].shape)}, prot_emb {tuple(emb.tree['prot_emb'].shape)})",
+          flush=True)
+    return train, val, data, emb.tree
+
+
+@contextlib.contextmanager
+def plain_gcn(gcn):
+    """Route the GCN aggregate through its plain version (autograd
+    differentiates it); comparison only."""
+    saved = gcn.gcn_packed_matmul
+    gcn.gcn_packed_matmul = gcn.gcn_packed_plain
+    try:
+        yield
+    finally:
+        gcn.gcn_packed_matmul = saved
+
+
+def reset_counts(attention, gcn) -> None:
+    attention.reset_launch_counts()
+    gcn.reset_launch_counts()
+
+
+def epoch_checks(torch, attention, gcn, cfg, train, val, data, emb):
+    """Phase 9: one epoch of make_epoch_step_gather (bf16, packed GCN on)
+    and the eval pass of make_eval_scan_gather, the main path; then the f32
+    agreement of the packed kernel with the plain and the dense GCN.
+    Returns (state, epoch fn, plan, launch counts of the main path)."""
+    import numpy as np
+
+    from druglamp_tpu_torch.data.device_data import eval_index_plan, train_index_plan
+    from druglamp_tpu_torch.eval.metrics import MetricCollector
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_epoch_step_gather, make_eval_scan_gather
+
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    model = build_model("DrugLAMP", cfg, generator=torch.Generator().manual_seed(SEED))
+    state = TrainState.create(model)
+    epoch = make_epoch_step_gather(model, False, False, True, True, device=DEVICE)
+    evaluate = make_eval_scan_gather(model, True, True, device=DEVICE)
+    tree, vtree = data.tree_for(train), data.tree_for(val)
+    idx = train_index_plan(np.random.RandomState(SEED).permutation(len(train)), TRAIN_B)
+    ones = np.ones(idx.shape, np.float32)
+    eidx, evalid = eval_index_plan(len(val), EVAL_B)
+    S, SE = idx.shape[0], eidx.shape[0]
+    print(f"  DrugLAMP at Config(), {cfg.solver.compute_dtype}, DRUGLAMP_PACKED_GCN=1; one epoch "
+          f"of {S} steps at batch {TRAIN_B} (permutation from seed {SEED}) in one call, then the "
+          f"validation pass of {SE} batches of {EVAL_B}", flush=True)
+
+    reset_counts(attention, gcn)
+    out = epoch(state, idx, ones, tree, emb, torch.Generator(device=DEVICE).manual_seed(SEED),
+                TRAIN_LR)
+    torch.cuda.synchronize()
+    launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    per_step = {"paired_attention_fwd": 4, "self_attention_fwd": 2, "paired_attention_bwd": 4,
+                "self_attention_bwd": 2, "gcn_packed_matmul": 3, "gcn_packed_matmul_bwd": 3}
+    print(f"  main path, epoch: launches {launches}", flush=True)
+    if launches != {k: S * v for k, v in per_step.items()}:
+        fail(f"epoch launches {launches}, expected {per_step} per step")
+    losses = out.cls_losses.float().cpu().numpy()
+    print(f"  cls losses: first {losses[:3].round(5).tolist()}, last {losses[-3:].round(5).tolist()}",
+          flush=True)
+    if out.cls_losses.shape != (S,) or not np.all(np.isfinite(losses)):
+        fail(f"epoch losses not finite of shape ({S},)")
+    names = [n for n, _ in model.named_parameters() if n.startswith("drug_extractor.")
+             and n.endswith(".weight") and any(k in n for k in ("graph", "res_connection",
+                                                                "init_transform"))]
+    zero = [n for n in names if model.get_parameter(n).grad is None
+            or model.get_parameter(n).grad.abs().max().item() == 0]
+    print(f"  gradients: {len(names)} GCN graph/res_connection/init_transform weights, "
+          f"{len(zero)} with a zero gradient", flush=True)
+    if len(names) != 7 or zero:
+        fail(f"GCN weights without gradient: {zero} (of {len(names)})")
+
+    reset_counts(attention, gcn)
+    probs, vlosses = evaluate(eidx, evalid, vtree, emb)
+    torch.cuda.synchronize()
+    eval_launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    print(f"  main path, eval: launches {eval_launches}", flush=True)
+    want = {k: (SE * v if k in ("paired_attention_fwd", "self_attention_fwd",
+                                "gcn_packed_matmul") else 0) for k, v in per_step.items()}
+    if eval_launches != want:
+        fail(f"eval launches {eval_launches}, expected {want}")
+    probs, vlosses = probs.float().cpu().numpy(), vlosses.float().cpu().numpy()
+    if probs.shape != (SE, EVAL_B) or not (np.all(np.isfinite(probs))
+                                           and np.all(np.isfinite(vlosses))):
+        fail(f"eval probabilities {probs.shape} or losses not finite")
+    mask = evalid.astype(bool)
+    collector = MetricCollector()
+    collector.update(probs[mask], val.labels[eidx[mask]])
+    m = collector.compute()
+    print(f"  validation: {int(mask.sum())} pairs, AUROC {m['auroc']:.4f}, AUPRC "
+          f"{m['auprc']:.4f}, loss {vlosses.mean():.5f}; probabilities in "
+          f"[{probs.min():.4f}, {probs.max():.4f}]", flush=True)
+    launches = {k: launches[k] + eval_launches[k] for k in launches}
+
+    epoch_f32_agreement(torch, gcn, cfg, tree, emb, idx[:3], ones[:3])
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    return state, epoch, (idx, ones, tree), launches
+
+
+def epoch_f32_agreement(torch, gcn, cfg, tree, emb, idx, ones):
+    """The first 3 steps of the epoch at f32, dropout 0, from the same
+    weights, three ways: the packed GCN through the kernel, through its
+    plain version on the card, and dense (keep_packed off).  Kernel vs plain
+    within 1e-5 (same products, f32 sums in another order); dense within
+    rtol 2e-4 (tests/test_kernels.py's packed-vs-dense tolerance).  At lr
+    1e-5, as tests/test_torch_port_device_data.py: Adam turns the sign of a
+    near-zero step-1 gradient into a ±lr step, so the later losses of two
+    f32 runs that differ in the last bits drift apart in proportion to lr
+    (4.4e-5 in the second loss at lr 1e-4 on this data)."""
+    import dataclasses
+
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_epoch_step_gather
+
+    cfg32 = dataclasses.replace(cfg, pmma_dropout=0.0, solver=dataclasses.replace(
+        cfg.solver, compute_dtype="float32"))
+    runs = {}
+    for mode in ("kernel", "plain", "dense"):
+        os.environ["DRUGLAMP_PACKED_GCN"] = "0" if mode == "dense" else "1"
+        model = build_model("DrugLAMP", cfg32, generator=torch.Generator().manual_seed(SEED))
+        epoch = make_epoch_step_gather(model, False, False, True, True, device=DEVICE)
+        gcn.reset_launch_counts()
+        with plain_gcn(gcn) if mode == "plain" else contextlib.nullcontext():
+            out = epoch(TrainState.create(model), idx, ones, tree, emb,
+                        torch.Generator(device=DEVICE).manual_seed(SEED), F32_LR)
+        runs[mode] = [float(x) for x in out.cls_losses.cpu()]
+        n = gcn.LAUNCHES["gcn_packed_matmul"] + gcn.LAUNCHES["gcn_packed_matmul_bwd"]
+        if n != (6 * len(idx) if mode == "kernel" else 0):
+            fail(f"f32 epoch ({mode}): {n} GCN kernel launches")
+        del model, epoch, out
+    d_plain = max(abs(a - b) for a, b in zip(runs["kernel"], runs["plain"]))
+    r_dense = max(abs(a - b) / abs(b) for a, b in zip(runs["kernel"], runs["dense"]))
+    print(f"  f32, dropout 0, 3 steps: kernel {['%.7f' % x for x in runs['kernel']]}, plain GCN "
+          f"{['%.7f' % x for x in runs['plain']]} (max |Δ| {d_plain:.3e}, tol 1e-5), dense "
+          f"{['%.7f' % x for x in runs['dense']]} (max rel {r_dense:.3e}, tol 2e-4)", flush=True)
+    if d_plain > 1e-5 or r_dense > 2e-4:
+        fail("the f32 packed epoch disagrees with the plain-GCN or the dense epoch")
+
+
+def chrome_trace_h2d(prof):
+    """(bytes, copies) host → device in a profiled window, from the memcpy
+    events of its trace (the profiler's tables carry no byte counts)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return sum(int(e.get("args", {}).get("bytes", 0)) for e in copies), len(copies)
+
+
+def epoch_timing(torch, state, epoch, plan, emb):
+    """Phase 9 timing: the epoch by CUDA events, the host time to issue it,
+    peak memory; then one profiled epoch for the device-busy share, the
+    host → device bytes and the count of host reads of device values."""
+    from torch.profiler import ProfilerActivity, profile
+
+    idx, ones, tree = plan
+    n_pairs = idx.size
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    epoch(state, idx, ones, tree, emb, gen, TRAIN_LR)
+    issue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    epoch_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  epoch ({idx.shape[0]} steps, {n_pairs} pairs, bf16, CUDA events): {epoch_ms:.1f} ms, "
+          f"{n_pairs / epoch_ms * 1e3:.1f} pairs/s; host time to issue the call "
+          f"{issue_s * 1e3:.1f} ms; peak device memory {peak_gib:.2f} GiB", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(state, idx, ones, tree, emb, gen, TRAIN_LR)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    kernels = device_kernels(torch, averages)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    syncs = {k: sum(e.count for e in averages if e.key == k)
+             for k in ("aten::item", "aten::_local_scalar_dense")}
+    waits = {k: sum(e.count for e in averages if e.key == k)
+             for k in ("cudaStreamSynchronize", "cudaDeviceSynchronize")}
+    h2d_bytes, h2d_copies = chrome_trace_h2d(prof)
+    ours = {n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3
+            for n in ("gcn_packed_kernel", "attention_fwd_kernel", "attention_dq_kernel",
+                      "attention_dkv_kernel")}
+    table = averages.table(sort_by="self_device_time_total", row_limit=40)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "epoch_profile.txt"), "w") as f:
+        f.write(table + "\n\nThe same epoch by self CPU time (host work):\n")
+        f.write(averages.table(sort_by="self_cpu_time_total", row_limit=40))
+    busy = (f"{busy_ms:.1f} ms of kernel time over the {epoch_ms:.1f} ms epoch = "
+            f"{busy_ms / epoch_ms:.1%}" if busy_ms > 0
+            else "not measured (the profiler shows no device time)")
+    print(f"  profiled epoch: device busy {busy}; host->device {h2d_bytes} bytes in "
+          f"{h2d_copies} copies; host reads of device values {syncs}; host waits {waits} "
+          f"(the closing torch.cuda.synchronize included); {sum(e.count for e in kernels)} "
+          f"kernel launches", flush=True)
+    print("  our kernels in the epoch (ms of device time): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in ours.items()), flush=True)
+    if any(syncs.values()):
+        fail(f"the epoch reads device values back to the host: {syncs}")
+
+
+def device_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
+    """Device time per call of ``fn``: the profiler's kernel time over
+    ``iters`` back-to-back calls.  For calls whose kernels take less time
+    than the host needs to issue them, CUDA events around a loop measure the
+    host; the kernels' own device time is what the profiler reads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(torch, prof.key_averages())
+    return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+
+
+def gcn_record(torch, gcn, tree, launches, max_abs_err):
+    """gcn_packed_matmul on the adjacency of real batches gathered from the
+    store (the first training batch, B=16, and the first validation-sized
+    batch, B=64) with x bf16 (B, 512, 128): kernel, plain, and the dense
+    yardstick torch.bmm(Â bf16, x) (timed here, never called by the packed
+    path), beside the bound from this run's bytes and operations.  Times
+    are device times (``device_ms``: each call takes less device time than
+    the host needs to issue it) in turns kernel, bmm, bmm, kernel; the
+    CUDA-event time per call of back-to-back kernel calls is printed
+    beside them."""
+    from druglamp_tpu_torch.data.device_data import gather_compact_batch
+    from druglamp_tpu_torch.data.encoding import decode_batch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    record = None
+    for B in (TRAIN_B, 64):
+        rows = torch.arange(B, device=DEVICE)
+        batch = decode_batch(gather_compact_batch(tree, rows, torch.ones(B, device=DEVICE),
+                                                  False, False), keep_packed=True)
+        packed, real = batch["drug_adj"]["packed"], batch["drug_adj"]["real"]
+        deg = batch["drug_degrees"]
+        nrm = torch.rsqrt(torch.clamp(deg, min=1.0))
+        n2r = nrm * nrm * real
+        N = packed.shape[1]
+        x = torch.randn(B, N, 128, generator=g, device="cuda").to(torch.bfloat16)
+        dense = ((nrm[:, :, None] * gcn.unpack_dense_adj(packed, real).float())
+                 * nrm[:, None, :]).to(torch.bfloat16)
+        kernel = lambda: gcn.gcn_packed_matmul(packed, nrm, n2r, x)       # noqa: E731
+        plain = lambda: gcn.gcn_packed_plain(packed, nrm, n2r, x)         # noqa: E731
+        library = lambda: torch.bmm(dense, x)                             # noqa: E731
+        nnz = int((deg - real).sum().item())          # set bits: bonds + the single self-loops
+        in_bytes = sum(t.numel() * t.element_size() for t in (packed, nrm, n2r, x))
+        out_bytes = B * N * 128 * 4
+        flops = 2 * 128 * (nnz + B * N)               # the set bits' products + the n2r term
+        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        turns = [("kernel", kernel), ("library", library), ("library", library), ("kernel", kernel)]
+        times = {"kernel": [], "library": []}
+        for label, fn in turns:
+            times[label].append(device_ms(torch, fn))
+        ms, library_ms = statistics.mean(times["kernel"]), statistics.mean(times["library"])
+        plain_ms = device_ms(torch, plain)
+        issue_ms = time_ms(torch, kernel)
+        print(f"  gcn_packed_matmul bf16 B={B} N={N} C=128 ({nnz} set bits), device time per "
+              f"call: kernel {ms * 1e3:.2f} us (turns "
+              f"{', '.join('%.2f' % (t * 1e3) for t in times['kernel'])}), plain "
+              f"{plain_ms * 1e3:.2f} us, dense bmm {library_ms * 1e3:.2f} us (turns "
+              f"{', '.join('%.2f' % (t * 1e3) for t in times['library'])}), bound "
+              f"{max(t_bytes, t_ops) * 1e3:.2f} us ({(in_bytes + out_bytes) / 1e6:.2f} MB, "
+              f"{flops / 1e9:.4f} GFLOP); back-to-back kernel calls by CUDA events "
+              f"{issue_ms * 1e3:.1f} us per call", flush=True)
+        if B == TRAIN_B:
+            record = {"name": "gcn_packed_matmul", "route": "cuda",
+                      "source": "druglamp_tpu_torch/csrc/gcn_packed.cu",
+                      "replaces": "druglamp_tpu/kernels/gcn_pallas.py:104",
+                      "launches": launches["gcn_packed_matmul"]
+                      + launches["gcn_packed_matmul_bwd"],
+                      "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": library_ms}
+    return record
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "druglamp_tpu_torch")):
         fail("druglamp_tpu_torch/ not found next to chip_smoke.py: run from a checkout")
@@ -705,6 +1178,25 @@ def main() -> None:
                                   train_launches, train_err["paired_attention_bwd"]),
                 bwd_kernel_record(torch, F, attention, "self_attention_bwd", False,
                                   train_launches, train_err["self_attention_bwd"])]
+    del model, state, step, batch
+
+    phase("8 packed GCN kernel vs plain")
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.kernels import gcn
+
+    gcn_err = gcn_checks(torch, gcn)
+
+    phase("9 device-resident training epoch")
+    print(f"  card: {smi}", flush=True)
+    import tempfile
+
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as root:
+        train, val, data, emb = build_epoch_data(cfg, root)
+    state, epoch, plan, epoch_launches = epoch_checks(torch, attention, gcn, cfg, train, val,
+                                                      data, emb)
+    epoch_timing(torch, state, epoch, plan, emb)
+    records.append(gcn_record(torch, gcn, plan[2], epoch_launches, gcn_err))
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -122,7 +122,7 @@ def compact_batch(batch: Dict[str, Any], n_atoms: np.ndarray) -> Dict[str, Any]:
     return out
 
 
-def _unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     """(…, nb) uint8 in the group-64 layout → (…, 8·nb) uint8 {0, 1}."""
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)[:, None]
     bits = (packed[..., None, :] >> shifts) & 1
@@ -132,42 +132,57 @@ def _unpack_bits(packed: torch.Tensor) -> torch.Tensor:
 def _unpack_node_feats(packed: torch.Tensor, ints: torch.Tensor) -> torch.Tensor:
     """Device-side inverse of pack_node_feats → (…, 75) f32.  FEAT_INT_COLS
     are adjacent, so the interleave is one concatenate."""
-    bits = _unpack_bits(packed).float()
+    bits = unpack_bits(packed).float()
     c0 = FEAT_INT_COLS[0]
     return torch.cat([bits[..., :c0], ints.float(), bits[..., c0 : FEAT_DIM - 2]], dim=-1)
 
 
 def decode_batch(batch: Dict[str, Any], store: Optional[Dict[str, Any]] = None,
-                 keep_packed: bool = False) -> Dict[str, Any]:
+                 keep_packed: Optional[bool] = None) -> Dict[str, Any]:
     """Expand a compact batch of tensors on their device; a batch already in
     standard form passes through.
 
-    Rebuilds the dense (B, N, N) uint8 adjacency with +1 on the diagonal of
-    real atoms, the degrees as its f32 row sums, the (B, N, 75) f32 node
-    features, the fill masks, ``vp`` as int32 and, when the batch carries
-    ``xp_src``/``xp_len``, the repeat-padded ``xp``.
+    ``store``: a ``DeviceEmbeddingStore.tree``.  When the batch carries entity
+    ordinals (``drug_ord``/``prot_ord``), the frozen LLM embeddings and their
+    lengths are gathered from it (``xd``, ``d_ntok``, ``xp_src``, ``xp_len``).
 
-    Not ported yet, and refused: entity ordinals gathered from a device
-    embedding store (``store``, ``drug_ord``; the device-store slice) and the
-    bit-packed adjacency kept for the packed GCN kernel (``keep_packed``;
-    slice 3)."""
+    ``keep_packed`` (default: auto, ``kernels.gcn.use_packed_gcn`` of the
+    batch's device): leave the adjacency bit-packed and emit ``drug_adj`` as
+    ``{"packed", "real"}`` for the packed GCN kernel, with the degrees from a
+    popcount.  Otherwise rebuild the dense (B, N, N) uint8 adjacency with +1
+    on the diagonal of real atoms, and the degrees as its f32 row sums.
+
+    Also the (B, N, 75) f32 node features, the fill masks, ``vp`` as int32
+    and, when the batch carries ``xp_src``/``xp_len``, the repeat-padded
+    ``xp``."""
     if "drug_adj_packed" not in batch:
         return batch
-    if store is not None or "drug_ord" in batch:
-        raise NotImplementedError("decode_batch: gathering embeddings from a device store "
-                                  "(drug_ord) belongs to the device-store slice")
-    if keep_packed:
-        raise NotImplementedError("decode_batch: keep_packed feeds the packed GCN kernel, "
-                                  "which belongs to slice 3")
+    from druglamp_tpu_torch.kernels import gcn as gcn_kernel
+
     out = dict(batch)
+    if store is not None and "drug_ord" in batch:
+        dor, por = batch["drug_ord"], batch["prot_ord"]
+        out["xd"] = store["drug_emb"].index_select(0, dor)
+        out["d_ntok"] = store["drug_len"].index_select(0, dor)
+        out["xp_src"] = store["prot_emb"].index_select(0, por)
+        out["xp_len"] = store["prot_len"].index_select(0, por)
+        del out["drug_ord"], out["prot_ord"]
+        batch = out
     packed = batch["drug_adj_packed"]
     B, N, _ = packed.shape
     dev = packed.device
     idx = torch.arange(N, device=dev)
     real = idx[None, :] < batch["n_atoms"][:, None]                     # (B, N)
-    adj = _unpack_bits(packed) + torch.diag_embed(real.to(torch.uint8))  # diag 2 real
-    out["drug_adj"] = adj
-    out["drug_degrees"] = adj.sum(dim=2).float()
+    if keep_packed is None:
+        keep_packed = gcn_kernel.use_packed_gcn(dev)
+    if keep_packed:
+        realf = real.float()
+        out["drug_adj"] = {"packed": packed, "real": realf}
+        out["drug_degrees"] = gcn_kernel.packed_degrees(packed, realf)
+    else:
+        adj = gcn_kernel.unpack_dense_adj(packed, real)              # diag 2 real
+        out["drug_adj"] = adj
+        out["drug_degrees"] = adj.sum(dim=2).float()
     if "drug_node_bits" in batch:
         out["drug_node_feats"] = _unpack_node_feats(batch["drug_node_bits"],
                                                     batch["drug_node_ints"])

@@ -46,9 +46,12 @@ class TrainState:
 def apply_optimizer(opt: torch.optim.AdamW, lr: float) -> None:
     """One AdamW step at ``lr`` on the parameters' ``.grad``.  A parameter
     whose ``.grad`` is None gets a zero gradient first, so it still decays,
-    as every leaf of the JAX tree does."""
+    as every leaf of the JAX tree does.  On a CUDA model the optimizer keeps
+    its step count on the device (``capturable``): the bias corrections are
+    then computed there, and the step reads nothing back to the host."""
     for group in opt.param_groups:
         group["lr"] = float(lr)
+        group["capturable"] = group["params"][0].is_cuda
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -187,3 +187,108 @@ def test_full_width_train_step_launches_the_kernels(cuda):
                                   "paired_attention_bwd": 4, "self_attention_bwd": 2}
     assert torch.isfinite(out.cls_loss) and out.probs.shape == (16,)
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# --- the packed-adjacency GCN kernel (csrc/gcn_packed.cu) ---------------------------------
+
+def _packed_case(cuda, B, N, C, dtype, seed=0):
+    """Molecule-like bits (ragged n_atoms, bonds among real atoms, the
+    universal self-loop), its scales, x and dy on the card."""
+    from druglamp_tpu_torch.data.encoding import pack_adjacency
+    from druglamp_tpu_torch.kernels import gcn
+
+    r = np.random.RandomState(seed)
+    n_atoms = r.randint(N // 8, N // 2, size=B)
+    adj = np.zeros((B, N, N), np.uint8)
+    ar = np.arange(N)
+    for b in range(B):
+        for _ in range(2 * n_atoms[b]):
+            i, j = r.randint(0, n_atoms[b], 2)
+            adj[b, i, j] = adj[b, j, i] = 1
+        adj[b, ar, ar] = 1
+    packed = torch.from_numpy(pack_adjacency(adj)).to(cuda)
+    real = torch.from_numpy((ar[None, :] < n_atoms[:, None]).astype(np.float32)).to(cuda)
+    nrm = torch.rsqrt(torch.clamp(gcn.packed_degrees(packed, real), min=1.0))
+    x = torch.from_numpy(r.randn(B, N, C).astype(np.float32)).to(cuda).to(dtype)
+    dy = torch.from_numpy(r.randn(B, N, C).astype(np.float32)).to(cuda)
+    return packed, nrm, nrm * nrm * real, x, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C", [(16, 512, 128), (3, 256, 64)])
+def test_gcn_packed_kernel_matches_plain(cuda, dtype, B, N, C):
+    """Forward and backward (through the autograd Function: the backward is
+    a second launch on dy cast to x's dtype) against the plain version, and
+    against the plain version applied to dy (S is symmetric).  f32: atol =
+    rtol = 1e-5.  bf16 x: the products with A are exact and only the order
+    of the f32 sums differs, so y within 1e-5 of its largest magnitude; dx
+    is rounded to bf16 once, one bf16 ulp of its largest magnitude."""
+    from druglamp_tpu_torch.kernels import gcn
+
+    packed, nrm, n2r, x, dy = _packed_case(cuda, B, N, C, dtype)
+    leaf = x.clone().requires_grad_()
+    before = dict(gcn.LAUNCHES)
+    y = gcn.gcn_packed_matmul(packed, nrm, n2r, leaf)
+    (dx,) = torch.autograd.grad(y, leaf, dy)
+    torch.cuda.synchronize()
+    assert gcn.LAUNCHES["gcn_packed_matmul"] == before["gcn_packed_matmul"] + 1
+    assert gcn.LAUNCHES["gcn_packed_matmul_bwd"] == before["gcn_packed_matmul_bwd"] + 1
+    ref = gcn.gcn_packed_plain(packed, nrm, n2r, x)
+    ref_dx = gcn.gcn_packed_plain(packed, nrm, n2r, dy.to(dtype))      # S·dy, f32
+    assert y.dtype == torch.float32 and dx.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(dx, ref_dx, atol=1e-5, rtol=1e-5)
+    else:
+        assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+        assert (dx.float() - ref_dx).abs().max().item() <= _bf16_ulp(ref_dx.abs().max().item())
+
+
+def test_gcn_packed_kernel_raises_instead_of_falling_back(cuda):
+    from druglamp_tpu_torch.kernels import gcn
+
+    packed, nrm, n2r, x, _ = _packed_case(cuda, 2, 256, 64, torch.float32)
+    cut = (packed[:, :96, :12].contiguous(), nrm[:, :96].contiguous(),
+           n2r[:, :96].contiguous(), x[:, :96].contiguous())
+    before = dict(gcn.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        gcn.gcn_packed_matmul(*cut)
+    with pytest.raises(ValueError, match="C=32"):
+        gcn.gcn_packed_matmul(packed, nrm, n2r, x[..., :32].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        gcn.gcn_packed_matmul(packed, nrm, n2r, x.half())
+    assert gcn.LAUNCHES == before
+
+
+def test_packed_gate_keeps_the_adjacency_packed_and_launches_the_kernel(cuda, monkeypatch):
+    """DRUGLAMP_PACKED_GCN=1 on a CUDA batch: decode_batch (auto) keeps the
+    adjacency packed, and a full-width train step of DrugLAMPwoLLM launches
+    the GCN kernel 3 times forward and 3 times backward; with the gate off
+    the adjacency is dense and the kernel does not run."""
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import compact_batch, decode_batch
+    from druglamp_tpu_torch.kernels import gcn
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+    from druglamp_tpu_torch.utils.synthetic import make_batch
+
+    cfg = Config()
+    host = make_batch(cfg, 16, seed=0, n_drug_feature=384, n_prot_feature=640)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in compact_batch(host, (host["d_fill"] == 0).sum(1)).items()}
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "0")
+    assert not isinstance(decode_batch(dict(batch))["drug_adj"], dict)
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    decoded = decode_batch(dict(batch))
+    assert isinstance(decoded["drug_adj"], dict)
+    assert decoded["drug_adj"]["packed"].shape == (16, 512, 64)
+    model = build_model("DrugLAMPwoLLM", cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    state, step = TrainState.create(model), make_train_step(model, False, False)
+    gcn.reset_launch_counts()
+    out = step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4)
+    torch.cuda.synchronize()
+    assert gcn.LAUNCHES == {"gcn_packed_matmul": 3, "gcn_packed_matmul_bwd": 3}
+    assert torch.isfinite(out.cls_loss)
+    grads = [model.get_parameter(f"drug_extractor.layer_{i}.graph.weight").grad for i in range(3)]
+    assert all(g is not None and g.abs().max() > 0 for g in grads)

@@ -14,6 +14,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "druglamp_tpu")
 PORT_FILES = sorted((ROOT / "druglamp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# The modules of the device-resident epoch and the packed GCN kernel (the
+# glob above must reach them).
+SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py",
+                 "data/dataset.py", "data/cache.py", "eval/metrics.py", "train/steps.py")
+
+
 def _imported_modules(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -26,6 +32,11 @@ def _imported_modules(path):
 def test_no_jax_import_in_source(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_are_checked(module):
+    assert ROOT / "druglamp_tpu_torch" / module in PORT_FILES
 
 
 def test_importing_the_port_loads_no_jax():

@@ -264,21 +264,14 @@ def test_dropout_step_is_reproducible_from_its_seed():
 
 # --- what the slice refuses ------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["drug_ord", "store", "keep_packed", "use_ssl", "use_cm",
-                                  "calibrate", "state_ssl", "grad_mode"])
+@pytest.mark.parametrize("case", ["use_ssl", "use_cm", "calibrate", "state_ssl", "grad_mode"])
 def test_refuses_what_later_slices_port(case):
     cfg = tiny_cfg()
     batch = to_torch(_compact(cfg, B=2))
     model = port_build_model("DrugLAMPwoLLM", port_config(cfg), ND, NP)
     err = ValueError if case == "grad_mode" else NotImplementedError
     with pytest.raises(err):
-        if case == "drug_ord":
-            penc.decode_batch({**batch, "drug_ord": torch.zeros(2, dtype=torch.int32)})
-        elif case == "store":
-            penc.decode_batch(batch, store={})
-        elif case == "keep_packed":
-            penc.decode_batch(batch, keep_packed=True)
-        elif case == "state_ssl":
+        if case == "state_ssl":
             TrainState.create(model, use_ssl=True)
         elif case == "grad_mode":
             make_train_step(model, False, False, grad_mode="summed", device="cpu")
