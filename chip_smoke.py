@@ -11,13 +11,16 @@ printing its own lines; any failure exits non-zero and prints no result:
    cuDNN, so the f32 comparisons below are true f32.
 2. build   — compiles every ``druglamp_tpu_torch/csrc/*.cu`` with nvcc for
    sm_90a (one nvcc per source, in parallel) and prints the seconds and the
-   ptxas report (registers, shared memory, spills).
+   ptxas report (registers, shared memory, spills); fails if a tensor-core
+   kernel spills.
 3. kernels — holds each kernel against its plain PyTorch version on the same
    inputs: the forwards at the serving shapes (B=32, H=4, L=S=256; D=64
-   paired, D=128 self) and at ragged small shapes, in f32 (atol = rtol =
-   1e-5) and bf16 (|err| ≤ one bf16 ulp at the output's largest magnitude:
-   the kernel keeps the probabilities in f32 where the plain version rounds
-   them to bf16); the backwards, through the autograd Functions with incoming
+   paired, D=128 self), the training shapes (B=16) and ragged small shapes,
+   in f32 (the FMA kernel; atol = rtol = 1e-5) and bf16 (the tensor-core
+   kernel; |err| ≤ one bf16 ulp at the output's largest magnitude: the
+   kernel keeps ~16 bits of the probabilities, P_hi + P_lo, where the plain
+   version rounds them to bf16), each with its log-sum-exp within 1e-5 of
+   the plain one; the backwards, through the autograd Functions with incoming
    gradients made non-contiguous as ``_merge_heads`` makes them, at the
    training shapes (B=16) and the same ragged shapes, in f32 (atol = rtol =
    2e-5) and bf16 (one bf16 ulp at each gradient's largest magnitude of the
@@ -29,13 +32,15 @@ printing its own lines; any failure exits non-zero and prints no result:
    and agreement with the same
    Predictor run through the plain attention on the card (bf16, and again
    at f32); runs ``return_attn=True`` once.
-5. timing  — CUDA events, warm-up then the median of repeated runs of many
-   launches: each kernel, its plain version, and the yardstick
+5. timing  — each forward kernel and its yardstick
    ``F.scaled_dot_product_attention`` (two calls for paired; timed here, never
-   called by the port) at the serving shapes in bf16, beside the least time
-   the card could take; Predictor pairs/s and peak device memory; a profiler
-   table of the forward's device time by kernel (written to
-   ``chiprun_out/serve_profile.txt`` as well).
+   called by the port) in bf16 at the serving (B=32) and training (B=16)
+   shapes, by the profiler's device time per call in turns kernel, sdpa,
+   sdpa, kernel, beside the least time the card could take, the plain
+   version's time and the CUDA-event time of back-to-back calls; Predictor
+   pairs/s and peak device memory; the device time of one forward and of
+   its attention kernels, and a profiler table of the forward by kernel
+   (written to ``chiprun_out/serve_profile.txt`` as well).
 6. train   — ``make_train_step`` (cls gate) on ``build_model("DrugLAMP",
    Config())`` at full width, bf16, seeded weights, one batch of 16 from
    ``make_batch`` put through ``compact_batch`` and decoded on the card:
@@ -173,6 +178,25 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 7, warmup: int = 3) -> float
     return statistics.median(times)
 
 
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes per kernel from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    report, func = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            func = m.group(1)
+            report.setdefault(func, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and func:
+            report[func].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            report[func]["registers"] = int(m.group(1))
+    return report
+
+
 def bf16_ulp(x: float) -> float:
     """Spacing of bf16 numbers at magnitude x (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 2.0 ** -133
@@ -188,8 +212,10 @@ def make_operands(torch, g, B, H, L, S, D, dtype, paired: bool):
 def kernel_checks(torch, attention):
     """Phase 3: max |kernel − plain| per case; fails outside tolerance."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [  # (B, H, L, S, D, paired); the ragged ones cover the other instantiations
+    cases = [  # (B, H, L, S, D, paired): serving, training, then ragged shapes that
+        # cover the other instantiations
         (32, 4, 256, 256, 64, True), (32, 4, 256, 256, 128, False),
+        (TRAIN_B, 4, 256, 256, 64, True), (TRAIN_B, 4, 256, 256, 128, False),
         (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
     ]
     serve_err = {}
@@ -202,7 +228,10 @@ def kernel_checks(torch, attention):
             else:
                 got = (attention.self_attention(*ops),)
                 ref = (attention.self_attention_plain(*ops),)
+            # the log-sum-exp the backward kernels read, against the plain one
+            _, lse = attention.launch_forward(*ops[:3], ops[3] if paired else None, with_lse=True)
             torch.cuda.synchronize()
+            lse_err = (lse - plain_lse(torch, ops)).abs().max().item()
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
             peak = max(b.float().abs().max().item() for b in ref)
             if dtype == torch.float32:
@@ -213,12 +242,22 @@ def kernel_checks(torch, attention):
                 ok = err <= tol
             name = "paired_attention_fwd" if paired else "self_attention_fwd"
             print(f"  {name} {str(dtype).split('.')[-1]} B={B} H={H} L={L} S={S} D={D}: "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| {peak:.3f})", flush=True)
-            if not ok:
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| {peak:.3f}); lse "
+                  f"{lse_err:.3e} (tol 1e-5)", flush=True)
+            if not ok or lse_err > 1e-5:
                 fail(f"{name} disagrees with its plain version at {(B, H, L, S, D)} {dtype}")
-            if dtype == torch.bfloat16 and (L, S) == (256, 256):
+            if dtype == torch.bfloat16 and (B, L, S) == (32, 256, 256):
                 serve_err[name] = err
     return serve_err
+
+
+def plain_lse(torch, ops):
+    """(NQ, B·H, L) log-sum-exp of each query set's f32 logits scaled by 1/√D."""
+    k = ops[1].float()
+    qs = (ops[0], ops[3]) if len(ops) == 4 else (ops[0],)
+    B, H, L, D = ops[0].shape
+    return torch.stack([torch.logsumexp(torch.matmul(q.float(), k.transpose(-1, -2))
+                                        / math.sqrt(D), -1).reshape(B * H, L) for q in qs])
 
 
 @contextlib.contextmanager
@@ -345,9 +384,17 @@ def serve_checks(torch, attention):
     return predictor, pairs, launches
 
 
-def kernel_record(torch, F, attention, name, paired, launches, max_abs_err):
+def fwd_timing(torch, F, attention, paired, B, with_plain):
+    """One forward kernel in bf16 at batch B (H=4, L=S=256; D=64 paired, 128
+    self): the kernel and its yardstick F.scaled_dot_product_attention (two
+    calls for paired) timed in turns kernel, sdpa, sdpa, kernel by their
+    device time (``device_ms``: a call takes less device time than the host
+    needs to issue it), with the CUDA-event time per call of back-to-back
+    calls beside them; the plain version when asked; the bound from this
+    call's bytes and operations.  Prints one line and returns (ms,
+    library_ms, plain_ms or None, bound_ms, bound_by)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    B, H, L, S = 32, 4, 256, 256
+    H, L, S = 4, 256, 256
     D = 64 if paired else 128
     ops = make_operands(torch, g, B, H, L, S, D, torch.bfloat16, paired)
     if paired:
@@ -368,17 +415,42 @@ def kernel_record(torch, F, attention, name, paired, launches, max_abs_err):
     flops = products * 4 * B * H * L * S * D          # QKᵀ and PV, 2 flops per MAC
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    ms, plain_ms, library_ms = time_ms(torch, kernel), time_ms(torch, plain), time_ms(torch, library)
-    print(f"  {name} bf16 B={B} H={H} L={L} S={S} D={D}: kernel {ms * 1e3:.1f} us, plain "
-          f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
-          f"({(in_bytes + out_bytes) / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+    times = {"kernel": [], "library": []}
+    for label, fn in (("kernel", kernel), ("library", library), ("library", library),
+                      ("kernel", kernel)):
+        times[label].append(device_ms(torch, fn))
+    ms, library_ms = statistics.mean(times["kernel"]), statistics.mean(times["library"])
+    plain_ms = device_ms(torch, plain) if with_plain else None
+    issue = {"kernel": time_ms(torch, kernel), "library": time_ms(torch, library)}
+    bound_ms = max(t_bytes, t_ops)
+    name = "paired_attention_fwd" if paired else "self_attention_fwd"
+    print(f"  {name} bf16 B={B} H={H} L={L} S={S} D={D}, device time per call: kernel "
+          f"{ms * 1e3:.2f} us (turns {', '.join('%.2f' % (t * 1e3) for t in times['kernel'])}), "
+          f"sdpa{' x2' if paired else ''} {library_ms * 1e3:.2f} us (turns "
+          f"{', '.join('%.2f' % (t * 1e3) for t in times['library'])}), "
+          + (f"plain {plain_ms * 1e3:.1f} us, " if with_plain else "")
+          + f"bound {bound_ms * 1e3:.2f} us ({(in_bytes + out_bytes) / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP); kernel / bound {ms / bound_ms:.2f}, kernel / sdpa "
+          f"{ms / library_ms:.2f}; back-to-back calls by CUDA events: kernel "
+          f"{issue['kernel'] * 1e3:.1f} us, sdpa {issue['library'] * 1e3:.1f} us per call",
+          flush=True)
+    return ms, library_ms, plain_ms, bound_ms, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_record(torch, F, attention, name, paired, launches, max_abs_err):
+    """The forward kernel's record: timed at the serving shape (B=32, with its
+    plain version) and at the training shape (B=TRAIN_B)."""
+    ms, library_ms, plain_ms, bound_ms, bound_by = fwd_timing(torch, F, attention, paired, 32,
+                                                              True)
+    train_ms, train_library_ms, _, train_bound_ms, _ = fwd_timing(torch, F, attention, paired,
+                                                                  TRAIN_B, False)
     return {"name": name, "route": "cuda", "source": "druglamp_tpu_torch/csrc/attention.cu",
             "replaces": ("druglamp_tpu/kernels/paired_attention_pallas.py:102" if paired
                          else "druglamp_tpu/kernels/paired_attention_pallas.py:191"),
             "launches": launches[name], "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "train_ms": train_ms,
+            "train_library_ms": train_library_ms, "train_bound_ms": train_bound_ms}
 
 
 def serve_timing(torch, predictor, pairs):
@@ -420,6 +492,12 @@ def serve_timing(torch, predictor, pairs):
     key = ("self_device_time_total" if averages and hasattr(averages[0], "self_device_time_total")
            else "self_cuda_time_total")
     table = averages.table(sort_by=key, row_limit=25)
+    kernels = device_kernels(torch, averages)
+    fwd = [e for e in kernels if "attention_fwd" in e.key]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  one forward of 32 pairs, profiled: {busy_ms:.3f} ms of kernel time, of which the "
+          f"attention forwards {sum(e.self_device_time_total for e in fwd) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in fwd)} launches", flush=True)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "serve_profile.txt"), "w") as f:
@@ -693,7 +771,7 @@ def train_timing(torch, attention, model, state, step, batch):
         print("  device busy in a step: not measured (the profiler shows no device time)",
               flush=True)
     ours = {n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3
-            for n in ("attention_fwd_kernel", "attention_dq_kernel", "attention_dkv_kernel")}
+            for n in ("attention_fwd", "attention_dq_kernel", "attention_dkv_kernel")}
     print("  attention kernels in the step (ms of device time): "
           + ", ".join(f"{n} {t:.3f}" for n, t in ours.items()), flush=True)
     print("  profiler, one train step (top 20 by self device time):", flush=True)
@@ -1013,7 +1091,7 @@ def epoch_timing(torch, state, epoch, plan, emb):
              for k in ("cudaStreamSynchronize", "cudaDeviceSynchronize")}
     h2d_bytes, h2d_copies = chrome_trace_h2d(prof)
     ours = {n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3
-            for n in ("gcn_packed_kernel", "attention_fwd_kernel", "attention_dq_kernel",
+            for n in ("gcn_packed_kernel", "attention_fwd", "attention_dq_kernel",
                       "attention_dkv_kernel")}
     table = averages.table(sort_by="self_device_time_total", row_limit=40)
     out_dir = os.path.join(REPO, "chiprun_out")
@@ -1151,6 +1229,12 @@ def main() -> None:
         for line in text.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
+    report = {f: r for text in logs.values() for f, r in ptxas_report(text).items()}
+    for f, r in report.items():
+        if "wgmma" in f:
+            print(f"  tensor-core kernel {f}: {r}", flush=True)
+            if r.get("spill_stores") or r.get("spill_loads"):
+                fail(f"{f} spills registers: {r}")
 
     phase("3 kernels vs plain")
     serve_err = kernel_checks(torch, attention)

@@ -1,9 +1,9 @@
 // Hand-written Hopper (sm_90a) forward kernels for PMMA attention.
 //
 // Replaces the Pallas TPU kernels of druglamp_tpu/kernels/paired_attention_pallas.py:
-//   paired_attention_fwd  <- paired_attention_pallas (forward, _fwd_kernel / _fwd_call)
+//   paired_attention_fwd  <- paired_attention_pallas (forward, _fwd_kernel / _fwd_call, :102)
 //       O1 = softmax(Q Kᵀ/√D) V  and  O2 = softmax(Q_o Kᵀ/√D) V  against one shared K/V
-//   self_attention_fwd    <- self_attention_pallas (forward, _self_fwd_kernel / _self_call)
+//   self_attention_fwd    <- self_attention_pallas (forward, _self_fwd_kernel / _self_call, :191)
 //       O = softmax(Q Kᵀ/√D) V
 // Logits, softmax and accumulation are f32 whatever the input dtype; the
 // output has the input dtype.  Operands are contiguous (B·H, L, D) queries and
@@ -13,21 +13,49 @@
 // one paired launch reads q, k, v, q_o and writes two outputs (25.2 MB in
 // bf16, 7.5 us at 3.35 TB/s) for 4.3 GFLOP (4.3 us at the bf16 tensor-core
 // peak), so the floor is the memory traffic — as long as the probabilities
-// (L×S per head, twice) never reach device memory.
+// (L×S per head, twice) never reach device memory.  At the f32 non-tensor
+// rate (67 TFLOP/s) the same 4.3 GFLOP take 64 us: a kernel that multiplies
+// on the CUDA cores is bound by its arithmetic, not by the bytes.  The
+// tensor-core kernel below runs at 2–3× the bytes bound (PERF.md §6): each
+// warpgroup waits, chunk by chunk, on its own chain of copy, QKᵀ, softmax
+// and PV.
 //
-// Design: one thread block per (b·h, 64-row query tile) and per query set
-// it serves; the block streams K/V in 64-key chunks through shared memory and
-// keeps an online softmax (running max and sum per row), so the probabilities
-// live only in shared memory and any S works.  The paired kernel stages both
-// query sets of the tile and computes them against the same K/V chunk: each
-// K/V byte is read from device memory once per tile for both products, which
-// is what the Pallas kernel's shared K/V load bought on the TPU.  K and V of
-// a chunk share one shared-memory buffer (V is staged after the scores are
-// formed).  The arithmetic is plain f32 FMA on a 16×16 thread grid (no tensor
-// cores yet): each thread owns a register tile of scores and of the output.
-// It is correct first; wgmma/TMA staging is later work.
+// Both kernels take one thread block per (b·h, 64-row query tile), stream K/V
+// in 64-key chunks and keep an online softmax (running max and sum per row),
+// so the probabilities never leave the chip and any S works.  The paired
+// kernel computes both query sets of a tile against the same K/V chunk, so
+// each K/V byte crosses from device memory once per tile for both products,
+// which is what the Pallas kernel's shared K/V load bought on the TPU.
 //
-// For training, the kernel also writes each row's log-sum-exp of the scaled
+// bf16 (attention_fwd_wgmma_kernel): the products run on the tensor cores.
+//   - One consumer warpgroup (128 threads) per query set: 2 for paired, 1 for
+//     self.  Thread 0 also issues the copies.
+//   - TMA: 3-D tensor maps over (B·H, rows, D) with 128-byte swizzle; a box
+//     is 64 rows × 64 columns (8 KB), so D = 128 is two panels.  Rows past L
+//     or S inside a slice come back as zeros, and the output's store drops
+//     them.  Q arrives once; K and V arrive in a two-stage ring of 64-key
+//     chunks, each on its own mbarrier, so the next chunk's copy overlaps this
+//     chunk's products and QKᵀ starts before V has landed.  A stage is
+//     refilled only after a __syncthreads that follows every warpgroup's
+//     wgmma wait on it.
+//   - S = Q Kᵀ: wgmma m64n64k16, both operands K-major in shared memory,
+//     f32 accumulators, D/16 steps.  Keys ≥ S get -inf before the row max.
+//   - Online softmax in registers: a row of S lives in the 4 threads of a
+//     quad (shuffles 1 and 2); exponentials in base 2 with the scale folded.
+//   - O += P V: P is reused from the accumulator registers as the A operand
+//     (wgmma m64nDk16, 4 steps per chunk); V is the B operand read MN-major
+//     (transpose bit).  P is split into P_hi = bf16(P) and P_lo = bf16(P -
+//     P_hi), two products into the same f32 accumulators, so P keeps ~16
+//     bits as the Pallas kernel's f32 P does.  That lifts a paired launch to
+//     6.4 GFLOP, 6.5 us at the tensor-core peak: still under the bytes bound.
+//   - Epilogue: O/l rounded to bf16 into the (swizzled) Q tile, then one TMA
+//     store per panel; lse = m + log l when asked for.
+// f32 (attention_fwd_kernel): the tensor cores have no true-f32 product, so
+//   f32 keeps the plain FMA kernel: each block stages both query sets and each
+//   K then V chunk in f32 shared memory, and a 16×16 thread grid owns register
+//   tiles of scores and of the output.
+//
+// For training, both kernels also write each row's log-sum-exp of the scaled
 // logits, lse = m + log(l), f32, laid out (NQ, B·H, L); the backward kernels
 // (attention_bwd.cu) recompute P = exp(S·scale − lse) from it.  Serving passes
 // lse = nullptr and writes nothing extra.
@@ -44,6 +72,8 @@ using attn::kChunk;
 using attn::kRows;
 using attn::kThreads;
 using attn::to_f32;
+
+// --- f32: the FMA kernel --------------------------------------------------------------
 
 template <int D, int NQ>
 struct Layout {
@@ -220,6 +250,340 @@ cudaError_t launch(const void* q0, const void* q1, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// --- bf16: the tensor-core kernel -------------------------------------------------------
+
+namespace sm90 = attn::sm90;
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D, int NQ>
+struct TcLayout {
+  static constexpr int kPanel = kRows * 128;         // one TMA box: 64 rows x 64 bf16 columns
+  static constexpr int kTile = (D / 64) * kPanel;    // 64 rows x D columns
+  static constexpr int kK = NQ * kTile;              // after the query tiles: two K stages
+  static constexpr int kV = kK + 2 * kTile;          // two V stages
+  static constexpr int kBar = kV + 2 * kTile;        // mbarriers: Q, K[2], V[2]
+  static constexpr size_t kBytes = kBar + 5 * 8 + 1024;  // + slack to align the base to 1024
+};
+
+// Tensor maps of the query sets, K, V and the outputs, passed by value.
+struct TcMaps {
+  CUtensorMap q[2], k, v, o[2];
+};
+
+#define ACC8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64) = A Bᵀ (+ d unless scale_d is 0): A 64 rows x 16 columns and B
+// 64 rows x 16 columns, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x D) += A B: A the 64 x 16 bf16 fragment in registers, B 16 rows x D
+// columns in shared memory, MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef ACC8
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// S = Q Kᵀ of one chunk into sc (64 rows x 64 keys), issued and committed as
+// one wgmma group; the caller waits for it.
+template <int D, int kPanel>
+__device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t sq, uint32_t sk) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kPanel + (kk % 4) * 32;
+    wgmma_qk(sc, sm90::sw128_desc(sq + off, 16), sm90::sw128_desc(sk + off, 16), kk);
+  }
+  sm90::wgmma_commit();
+}
+
+// The online softmax of one chunk, in place: sc becomes exp2(x - m) of the
+// base-2 scaled logits x (keys ≥ S masked to -inf), m_r the new row max,
+// l_r this thread's share of the row sum; alpha = exp2(m_old - m) rescales
+// what was accumulated before.  Each chunk has at least one key < S, so the
+// new max is finite; on the first chunk alpha is 0.
+__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m_r)[2], float (&l_r)[2],
+                                               float (&alpha)[2], int key0, int S,
+                                               float scale_log2) {
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = key0 + 8 * j + (e & 1) < S ? sc[4 * j + e] * scale_log2 : -INFINITY;
+      sc[4 * j + e] = x;
+      mx[e / 2] = fmaxf(mx[e / 2], x);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2f(m_r[r] - mx[r]);
+    m_r[r] = mx[r];
+    l_r[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = exp2f(sc[i] - m_r[(i / 2) % 2]);
+    l_r[(i / 2) % 2] += sc[i];
+  }
+}
+
+// P (in sc) as the A operand of the PV product, split into bf16 P_hi + P_lo:
+// 16-key step kk holds 8-column groups 2kk and 2kk+1, so register 2h + r of
+// step kk is group 2kk + h, row half r.
+__device__ __forceinline__ void pack_p(const float (&sc)[32], uint32_t (&p_hi)[4][4],
+                                       uint32_t (&p_lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float p0 = sc[4 * j + 2 * r], p1 = sc[4 * j + 2 * r + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - __low2float(hi), p1 - __high2float(hi));
+      p_hi[j / 2][2 * (j % 2) + r] = bf16x2_bits(hi);
+      p_lo[j / 2][2 * (j % 2) + r] = bf16x2_bits(lo);
+    }
+}
+
+// O += P_hi V + P_lo V over one chunk, issued and committed as one wgmma group.
+template <int kPanel, int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N], const uint32_t (&p_hi)[4][4],
+                                         const uint32_t (&p_lo)[4][4], uint32_t sv) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc_v = sm90::sw128_desc(sv + kk * 16 * 128, kPanel);
+    wgmma_pv(o, p_hi[kk], desc_v);
+    wgmma_pv(o, p_lo[kk], desc_v);
+  }
+  sm90::wgmma_commit();
+}
+
+// Warpgroup n (n < NQ) computes query set n of the tile.  In an m64nN
+// accumulator, thread t of a warpgroup holds rows 16·(t/32) + (t%32)/4 (+8)
+// and, per 8-column group j, columns 8j + 2·(t%4) (+1): d[4j + 2r + e] is row
+// half r, column e.  lse, when not null, is (NQ, gridDim.x = B·H, L).
+template <int D, int NQ>
+__global__ void __launch_bounds__(NQ * 128)
+attention_fwd_wgmma_kernel(const __grid_constant__ TcMaps maps, float* __restrict__ lse, int L,
+                           int S, float scale_log2) {
+  using Lay = TcLayout<D, NQ>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled tiles are 1024-byte aligned
+  uint8_t* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int set = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32, quad = lane % 4;
+  const int bh = blockIdx.x;
+  const int row0 = blockIdx.y * kRows;
+  const int chunks = (S + kChunk - 1) / kChunk;
+  const uint32_t bar_q = base + Lay::kBar;
+  // ring stage c % 2 of chunk c: its K and V tiles and their barriers
+  const auto sk = [&](int c) { return base + Lay::kK + (c & 1) * Lay::kTile; };
+  const auto sv = [&](int c) { return base + Lay::kV + (c & 1) * Lay::kTile; };
+  const auto bar_k = [&](int c) { return bar_q + 8 + 8 * (c & 1); };
+  const auto bar_v = [&](int c) { return bar_q + 24 + 8 * (c & 1); };
+
+  // chunk c of K and of V into its ring stage (thread 0 only)
+  const auto load_kv = [&](int c) {
+    sm90::mbar_expect_tx(bar_k(c), Lay::kTile);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      sm90::tma_load_3d(sk(c) + p * Lay::kPanel, &maps.k, bar_k(c), 64 * p, c * kChunk, bh);
+    sm90::mbar_expect_tx(bar_v(c), Lay::kTile);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      sm90::tma_load_3d(sv(c) + p * Lay::kPanel, &maps.v, bar_v(c), 64 * p, c * kChunk, bh);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) sm90::mbar_init(bar_q + 8 * i, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_expect_tx(bar_q, NQ * Lay::kTile);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+        sm90::tma_load_3d(base + n * Lay::kTile + p * Lay::kPanel, &maps.q[n], bar_q, 64 * p, row0,
+                          bh);
+    load_kv(0);
+    if (chunks > 1) load_kv(1);
+  }
+
+  float o[D / 2], sc[32], alpha[2];
+  uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;  // defined for the compiler: step 0 overwrites it
+  float m_r[2] = {-INFINITY, -INFINITY};  // running row max, base-2 scaled logits
+  float l_r[2] = {0.f, 0.f};              // this thread's share of the running row sum
+  const uint32_t sq = base + set * Lay::kTile;
+  sm90::mbar_wait(bar_q, 0);
+
+  for (int c = 0; c < chunks; ++c) {
+    sm90::mbar_wait(bar_k(c), (c >> 1) & 1);
+    issue_qk<D, Lay::kPanel>(sc, sq, sk(c));
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    online_softmax(sc, m_r, l_r, alpha, c * kChunk + 2 * quad, S, scale_log2);
+    pack_p(sc, p_hi, p_lo);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+    sm90::mbar_wait(bar_v(c), (c >> 1) & 1);
+    issue_pv<Lay::kPanel>(o, p_hi, p_lo, sv(c));
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::fence_regs(p_hi);
+    sm90::fence_regs(p_lo);
+    __syncthreads();  // every warpgroup is done with stage c % 2: refill it
+    if (tid == 0 && c + 2 < chunks) load_kv(c + 2);
+  }
+
+  // epilogue: O / l in bf16 into this set's Q tile, swizzled as TMA expects
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    inv[r] = 1.f / l_r[r];
+  }
+  const int rows[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
+  uint8_t* tile = smem + set * Lay::kTile;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int chunk16 = (j % 8) ^ (rows[r] % 8);
+      *reinterpret_cast<__nv_bfloat162*>(tile + (j / 8) * Lay::kPanel + rows[r] * 128 +
+                                         chunk16 * 16 + quad * 4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  if (lse != nullptr && quad == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + rows[r];
+      if (row < L)
+        lse[((size_t)set * gridDim.x + bh) * L + row] = (m_r[r] + log2f(l_r[r])) * kLn2;
+    }
+  }
+  sm90::fence_proxy_async();
+  sm90::named_barrier(1 + set, 128);
+  if (tid % 128 == 0) {
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      sm90::tma_store_3d(&maps.o[set], sq + p * Lay::kPanel, 64 * p, row0, bh);
+    sm90::tma_store_commit_and_wait();
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  return encode;
+}
+
+// A map over a contiguous (bh, rows, D) bf16 tensor in boxes of 64 rows x 64
+// columns, 128-byte swizzle; reads outside it return zeros.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int rows, int D) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {64, kRows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int NQ>
+cudaError_t launch_wgmma(const void* q0, const void* q1, const void* k, const void* v, void* o0,
+                         void* o1, float* lse, int bh, int L, int S, cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  TcMaps maps;
+  const bool encoded = encode_map(encode, &maps.q[0], q0, bh, L, D) &&
+                       encode_map(encode, &maps.q[1], q1, bh, L, D) &&
+                       encode_map(encode, &maps.k, k, bh, S, D) &&
+                       encode_map(encode, &maps.v, v, bh, S, D) &&
+                       encode_map(encode, &maps.o[0], o0, bh, L, D) &&
+                       encode_map(encode, &maps.o[1], o1, bh, L, D);
+  if (!encoded) return cudaErrorInvalidValue;
+  auto kernel = attention_fwd_wgmma_kernel<D, NQ>;
+  const size_t smem = TcLayout<D, NQ>::kBytes;
+  cudaError_t err = attn::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (L + kRows - 1) / kRows);
+  const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
+  kernel<<<grid, NQ * 128, smem, stream>>>(maps, lse, L, S, scale_log2);
+  return cudaGetLastError();
+}
+
 template <int NQ>
 int dispatch(const void* q0, const void* q1, const void* k, const void* v, void* o0, void* o1,
              void* lse_ptr, int bh, int L, int S, int D, int dtype, void* stream) {
@@ -230,16 +594,16 @@ int dispatch(const void* q0, const void* q1, const void* k, const void* v, void*
   if (dtype == 0 && D == 128)
     return launch<float, 128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
+    return launch_wgmma<64, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
+    return launch_wgmma<128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  lse: (NQ, bh, L) f32 or null.  Returns the
-// cudaError_t of the launch.
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).  lse:
+// (NQ, bh, L) f32 or null.  Returns the cudaError_t of the launch.
 extern "C" int paired_attention_fwd(const void* q, const void* k, const void* v, const void* q_other,
                                     void* o1, void* o2, void* lse, int bh, int L, int S, int D,
                                     int dtype, void* stream) {

@@ -10,7 +10,8 @@ Each function has two versions in this module:
   the Pallas backward's formulas written out in f32;
 - hand-written CUDA kernels that replace the Pallas TPU kernels
   ``paired_attention_pallas`` / ``self_attention_pallas``: the forwards in
-  ``csrc/attention.cu``, the backwards in ``csrc/attention_bwd.cu``.
+  ``csrc/attention.cu`` (bf16 on the tensor cores, ``wgmma`` fed by TMA; f32
+  on the CUDA cores), the backwards in ``csrc/attention_bwd.cu``.
 
 Dispatch: a CPU tensor takes the plain version, which autograd
 differentiates (what the JAX package runs on the CPU).  A CUDA tensor launches
@@ -143,8 +144,21 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"operands must share one dtype of {list(_DTYPE_CODES)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        # the bf16 kernel reads through TMA tensor maps, which take 16-byte-aligned bases
+        raise ValueError("attention operands must start 16-byte aligned")
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("attention operands must all lie on one CUDA device")
+
+
+def check_lse(name: str, lse: torch.Tensor, q: torch.Tensor, n_sets: int) -> None:
+    """Raise unless ``lse`` is the contiguous (n_sets, B·H, L) f32 buffer on
+    q's device that the kernels write and read."""
+    B, H, L, _ = q.shape
+    if lse.shape != (n_sets, B * H, L) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be a contiguous ({n_sets}, {B * H}, {L}) f32 tensor "
+                         f"on {q.device}")
 
 
 def _check_rc(name: str, rc: int) -> None:
@@ -166,8 +180,10 @@ def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     paired = q_other is not None
     name = "paired_attention_fwd" if paired else "self_attention_fwd"
     outs = (torch.empty_like(q), torch.empty_like(q)) if paired else (torch.empty_like(q),)
-    lse = (torch.empty((len(outs), B * H, L), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    lse = None
+    if with_lse:  # the backward kernels read it in this layout
+        lse = torch.empty((len(outs), B * H, L), dtype=torch.float32, device=q.device)
+        check_lse(name, lse, q, len(outs))
     args = (q, k, v) + ((q_other,) if paired else ()) + outs + (lse,)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -192,9 +208,7 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not g.is_contiguous() for g in grads):
         raise ValueError(f"{name}: incoming gradients must be contiguous, one per output, "
                          f"of the queries' shape {tuple(q.shape)} and dtype {q.dtype}")
-    if lse.shape != (len(grads), B * H, L) or lse.dtype != torch.float32 \
-            or lse.device != q.device or not lse.is_contiguous():
-        raise ValueError(f"{name}: lse must be the forward's ({len(grads)}, {B * H}, {L}) f32")
+    check_lse(name, lse, q, len(grads))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     if paired:

@@ -37,12 +37,15 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,L,S,D,paired", [
     (32, 4, 256, 256, 64, True), (32, 4, 256, 256, 128, False),
+    (16, 4, 256, 256, 64, True), (16, 4, 256, 256, 128, False),
     (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
 ])
 def test_kernel_matches_plain(cuda, dtype, B, H, L, S, D, paired):
-    """f32: atol = rtol = 1e-5.  bf16: one bf16 ulp at the output's largest
-    magnitude (the kernel keeps the probabilities in f32 where the plain
-    version rounds them to bf16)."""
+    """Serving (B=32), training (B=16) and ragged shapes.  f32 (FMA kernel):
+    atol = rtol = 1e-5.  bf16 (tensor-core kernel): one bf16 ulp at the
+    output's largest magnitude (the kernel keeps ~16 bits of the
+    probabilities, P_hi + P_lo, where the plain version rounds them to
+    bf16)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     rand = lambda n: torch.randn(B, H, n, D, generator=g, device=cuda).to(dtype)  # noqa: E731
     q, k, v, qo = rand(L), rand(S), rand(S), rand(L)
@@ -61,6 +64,27 @@ def test_kernel_matches_plain(cuda, dtype, B, H, L, S, D, paired):
             torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
         else:
             assert (a.float() - b.float()).abs().max().item() <= _bf16_ulp(b.float().abs().max().item())
+
+
+@pytest.mark.parametrize("B,H,L,S,D,paired", [
+    (32, 4, 256, 256, 64, True), (32, 4, 256, 256, 128, False),
+    (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
+])
+def test_bf16_forward_lse_matches_plain(cuda, B, H, L, S, D, paired):
+    """The tensor-core forward's (NQ, B·H, L) log-sum-exp, which the backward
+    kernels read, within 1e-5 of the plain one of the scaled f32 logits."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    def rand(n):
+        return torch.randn(B, H, n, D, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, k, v = rand(L), rand(S), rand(S)
+    qs = [q, rand(L)] if paired else [q]
+    _, lse = attention.launch_forward(q, k, v, qs[1] if paired else None, with_lse=True)
+    torch.cuda.synchronize()
+    ref = torch.stack([torch.logsumexp(torch.matmul(x.float(), k.float().transpose(-1, -2))
+                                       / math.sqrt(D), -1).reshape(B * H, L) for x in qs])
+    assert lse.shape == (len(qs), B * H, L) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref, atol=1e-5, rtol=0)
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):

@@ -80,6 +80,61 @@ def test_bf16_inputs():
         assert np.abs(out.float().numpy() - ref).max() <= _bf16_ulp(np.abs(ref).max())
 
 
+def _tile_attention(q, k, v):
+    """What csrc/attention.cu's bf16 tensor-core kernel computes, in f32 torch:
+    an online softmax over 64-key chunks (keys ≥ S of the last chunk are zero
+    rows masked to -inf), P split into bf16 terms P_hi + P_lo, both products
+    accumulated in f32, O/l rounded to bf16 → (out, lse)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    S, D = k.shape[-2], k.shape[-1]
+    pad = -S % 64
+    kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (kf, vf))
+    m = torch.full(q.shape[:-1], -math.inf)
+    l, acc = torch.zeros(q.shape[:-1]), torch.zeros(q.shape)
+    for c0 in range(0, S, 64):
+        s = torch.matmul(qf, kf[..., c0:c0 + 64, :].transpose(-1, -2)) / math.sqrt(D)
+        s[..., max(0, S - c0):] = -math.inf
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float()
+        vc = vf[..., c0:c0 + 64, :]
+        acc = acc * alpha[..., None] + torch.matmul(p_hi, vc) + torch.matmul(p_lo, vc)
+        m = m_new
+    return (acc / l[..., None]).bfloat16(), m + torch.log(l)
+
+
+@pytest.mark.parametrize("L,S,D,paired", [
+    (256, 256, 64, True), (256, 256, 128, False), (37, 70, 128, True), (100, 33, 64, False),
+])
+def test_tile_algorithm_keeps_the_bf16_tolerance(L, S, D, paired):
+    """The bf16 kernel's tile algorithm on bf16 inputs: within one bf16 ulp at
+    the output's largest magnitude of the Pallas kernel (interpret mode) and
+    of the port's plain version; its lse within 1e-5 of the log-sum-exp of the
+    scaled f32 logits."""
+    B, H = 1, 2
+    q, k, v, qo = _operands([(B, H, L, D), (B, H, S, D), (B, H, S, D), (B, H, L, D)], seed=6)
+    jq, jk, jv, jqo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, qo))
+    tq, tk, tv, tqo = (_t(a, torch.bfloat16) for a in (q, k, v, qo))
+    if paired:
+        pallas = pk.paired_attention_pallas(jq, jk, jv, jqo)
+        queries = (tq, tqo)
+    else:
+        pallas = (pk.self_attention_pallas(jq, jk, jv),)
+        queries = (tq,)
+    for qq, ref in zip(queries, pallas):
+        out, lse = _tile_attention(qq, tk, tv)
+        ref = np.asarray(ref.astype(jnp.float32))
+        got = out.float().numpy()
+        assert np.abs(got - ref).max() <= _bf16_ulp(np.abs(ref).max())
+        plain = attention.attention_plain(qq, tk, tv)[0].float().numpy()
+        assert np.abs(got - plain).max() <= _bf16_ulp(np.abs(plain).max())
+        logits = torch.matmul(qq.float(), tk.float().transpose(-1, -2)) / math.sqrt(D)
+        torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-5, rtol=0)
+
+
 def test_need_weights_returns_probabilities_without_launching():
     B, H, L, S, D = 1, 2, 8, 12, 64
     q, k, v, qo = map(_t, _operands([(B, H, L, D), (B, H, S, D), (B, H, S, D), (B, H, L, D)]))
@@ -109,6 +164,7 @@ def _ok_operands(D=64, dtype=torch.float32):
     ("dtype", "dtype"),
     ("contiguous", "contiguous"),
     ("shape", "shape mismatch"),
+    ("aligned", "16-byte aligned"),
     ("device", "CUDA device"),
 ])
 def test_operand_checks_refuse(case, match):
@@ -121,8 +177,24 @@ def test_operand_checks_refuse(case, match):
         ops[1] = torch.zeros(2, 2, 64, 10).transpose(-1, -2)
     elif case == "shape":
         ops[3] = torch.zeros(2, 2, 9, 64)
+    elif case == "aligned":  # one f32 element off a fresh buffer: 4 bytes past alignment
+        ops[1] = torch.zeros(2 * 2 * 10 * 64 + 1)[1:].view(2, 2, 10, 64)
+        assert ops[1].is_contiguous() and ops[1].data_ptr() % 16 == 4
     with pytest.raises(ValueError, match=match):
         attention.check_operands(*ops)
+
+
+@pytest.mark.parametrize("case", ["dtype", "contiguous", "shape"])
+def test_lse_checks_refuse(case):
+    """The (NQ, B·H, L) f32 log-sum-exp buffer that a launch writes and the
+    backward reads: anything else raises."""
+    q = torch.zeros(2, 2, 8, 64)
+    lse = {"dtype": torch.zeros(2, 4, 8, dtype=torch.float64),
+           "contiguous": torch.zeros(2, 8, 4).transpose(1, 2),
+           "shape": torch.zeros(1, 4, 8)}[case]
+    attention.check_lse("paired_attention_fwd", torch.zeros(2, 4, 8), q, 2)
+    with pytest.raises(ValueError, match="lse must be a contiguous"):
+        attention.check_lse("paired_attention_fwd", lse, q, 2)
 
 
 def test_build_keys_libraries_by_source_hash():
