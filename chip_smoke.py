@@ -12,7 +12,8 @@ printing its own lines; any failure exits non-zero and prints no result:
 2. build   — compiles every ``druglamp_tpu_torch/csrc/*.cu`` with nvcc for
    sm_90a (one nvcc per source, in parallel) and prints the seconds and the
    ptxas report (registers, shared memory, spills); fails if a tensor-core
-   kernel spills.
+   kernel spills.  Prints the bf16 backward kernels' dynamic shared memory
+   and resident blocks per SM on this card.
 3. kernels — holds each kernel against its plain PyTorch version on the same
    inputs: the forwards at the serving shapes (B=32, H=4, L=S=256; D=64
    paired, D=128 self), the training shapes (B=16) and ragged small shapes,
@@ -22,9 +23,11 @@ printing its own lines; any failure exits non-zero and prints no result:
    version rounds them to bf16), each with its log-sum-exp within 1e-5 of
    the plain one; the backwards, through the autograd Functions with incoming
    gradients made non-contiguous as ``_merge_heads`` makes them, at the
-   training shapes (B=16) and the same ragged shapes, in f32 (atol = rtol =
-   2e-5) and bf16 (one bf16 ulp at each gradient's largest magnitude of the
-   plain backward run in f32 on the same bf16 inputs).
+   training shapes (B=16), the same ragged shapes and one with L > S, in f32
+   (the FMA kernels; atol = rtol = 2e-5) and bf16 (the tensor-core kernels;
+   one bf16 ulp at each gradient's largest magnitude of the plain backward
+   run in f32 on the same bf16 inputs); two bf16 backward calls at the
+   training shapes give bit-identical gradients.
 4. serve   — ``Predictor`` at the default full-width ``Config()`` (bf16),
    with seeded weights and BatchNorm running stats taken from the first
    chunk, scores 64 pairs (two chunks of 32) through the kernels; asserts 4
@@ -55,8 +58,9 @@ printing its own lines; any failure exits non-zero and prints no result:
    memory, the device-busy share of a step (kernel device time from the
    profiler over the step time; table in ``chiprun_out/train_profile.txt``),
    and each backward kernel beside its bound, its plain version and the
-   yardstick ``F.scaled_dot_product_attention``'s backward (timed in turns
-   with the kernel; its kernels' names show the backend it picked).
+   yardstick ``F.scaled_dot_product_attention``'s backward, by device time in
+   turns kernel, sdpa, sdpa, kernel, with the CUDA-event time of back-to-back
+   calls beside them (its kernels' names show the backend SDPA picked).
 8. packed GCN — ``gcn_packed_matmul`` (``csrc/gcn_packed.cu``) against its
    plain version, forward and backward through its autograd Function, at
    the training (16, 512, 128), eval (64, 512, 128) and a small ragged
@@ -518,7 +522,7 @@ def backward_checks(torch, attention):
     tolerance.  Returns max |err| per kernel at the bf16 training shapes."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     cases = [(TRAIN_B, 4, 256, 256, 64, True), (TRAIN_B, 4, 256, 256, 128, False),
-             (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False)]
+             (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False), (2, 3, 150, 70, 64, True)]
     train_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, L, S, D, paired in cases:
@@ -553,6 +557,27 @@ def backward_checks(torch, attention):
             if dtype == torch.bfloat16 and B == TRAIN_B:
                 train_err[name] = max(errs)
     return train_err
+
+
+def determinism_checks(torch, attention):
+    """Phase 3: two bf16 backward launches on the same inputs at the
+    training shapes give bit-identical gradients (no atomics)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for paired in (True, False):
+        D = 64 if paired else 128
+        ops = make_operands(torch, g, TRAIN_B, 4, 256, 256, D, torch.bfloat16, paired)
+        q_o = ops[3] if paired else None
+        dos = [torch.randn(ops[0].shape, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(2 if paired else 1)]
+        outs, lse = attention.launch_forward(*ops[:3], q_o, with_lse=True)
+        runs = [attention.launch_backward(*ops[:3], q_o, outs, lse, dos) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        name = "paired_attention_bwd" if paired else "self_attention_bwd"
+        print(f"  {name} bf16 B={TRAIN_B} H=4 L=S=256 D={D}, two calls bit-identical: "
+              f"{dict(zip('dq dk dv dq_o'.split(), same))}", flush=True)
+        if not all(same):
+            fail(f"{name}: two calls on the same inputs differ")
 
 
 def make_trainer(torch, cfg):
@@ -653,8 +678,15 @@ def train_checks(torch, attention):
 
 
 def bwd_kernel_record(torch, F, attention, name, paired, launches, max_abs_err):
-    """One backward kernel at the training shapes in bf16: kernel, plain, and
-    the SDPA backward yardstick timed in turns; bound from this run's bytes."""
+    """One backward kernel at the training shapes in bf16: the kernel and the
+    SDPA backward yardstick timed in turns (kernel, sdpa, sdpa, kernel) by
+    their device time (``device_ms``: at tens of µs a call takes less device
+    time than the host needs to issue it), with the CUDA-event time per call
+    of back-to-back calls beside them; the plain version's device time; the
+    bound from this run's bytes and operations; SDPA's backend from its
+    kernels' names.  The record carries the forward records' keys; the
+    backward runs only at the training shape, so its ``train_*`` values are
+    the same numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -665,19 +697,19 @@ def bwd_kernel_record(torch, F, attention, name, paired, launches, max_abs_err):
     q_o = ins[3] if paired else None
     dos = [torch.randn(B, H, L, D, generator=g, device="cuda").to(torch.bfloat16)
            for _ in range(2 if paired else 1)]
-    _, lse = attention.launch_forward(q, k, v, q_o, with_lse=True)
-    kernel = lambda: attention.launch_backward(q, k, v, q_o, lse, dos)      # noqa: E731
+    outs, lse = attention.launch_forward(q, k, v, q_o, with_lse=True)
+    kernel = lambda: attention.launch_backward(q, k, v, q_o, outs, lse, dos)  # noqa: E731
     if paired:
         plain = lambda: attention.paired_attention_bwd_plain(*ins, *dos)   # noqa: E731
     else:
         plain = lambda: attention.self_attention_bwd_plain(*ins, *dos)     # noqa: E731
     leaves = [t.clone().requires_grad_() for t in ins]
     if paired:
-        outs = (F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[2]),
-                F.scaled_dot_product_attention(leaves[3], leaves[1], leaves[2]))
+        sdpa_outs = (F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[2]),
+                     F.scaled_dot_product_attention(leaves[3], leaves[1], leaves[2]))
     else:
-        outs = (F.scaled_dot_product_attention(*leaves),)
-    library = lambda: torch.autograd.grad(outs, leaves, dos, retain_graph=True)  # noqa: E731
+        sdpa_outs = (F.scaled_dot_product_attention(*leaves),)
+    library = lambda: torch.autograd.grad(sdpa_outs, leaves, dos, retain_graph=True)  # noqa: E731
 
     n_out = len(ins)                                  # one gradient per input
     elem = q.element_size()
@@ -687,33 +719,39 @@ def bwd_kernel_record(torch, F, attention, name, paired, launches, max_abs_err):
     flops = products * 10 * B * H * L * S * D     # S, dV, dP, dQ, dK: 2 flops per MAC each
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    turns = [("kernel", kernel), ("library", library), ("library", library), ("kernel", kernel)]
+    bound_ms = max(t_bytes, t_ops)
     times = {"kernel": [], "library": []}
-    for label, fn in turns:
-        times[label].append(time_ms(torch, fn))
+    for label, fn in (("kernel", kernel), ("library", library), ("library", library),
+                      ("kernel", kernel)):
+        times[label].append(device_ms(torch, fn))
     ms, library_ms = statistics.mean(times["kernel"]), statistics.mean(times["library"])
-    plain_ms = time_ms(torch, plain)
+    plain_ms = device_ms(torch, plain)
+    issue = {"kernel": time_ms(torch, kernel), "library": time_ms(torch, library)}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         library()
         torch.cuda.synchronize()
     sdpa = sorted(device_kernels(torch, prof.key_averages()),
                   key=lambda e: -e.self_device_time_total)
     backend = "; ".join(e.key[:90] for e in sdpa[:3]) or "not shown by the profiler"
-    print(f"  {name} bf16 B={B} H={H} L={L} S={S} D={D}: kernel {ms * 1e3:.1f} us "
-          f"(turns {', '.join('%.1f' % (t * 1e3) for t in times['kernel'])}), plain "
-          f"{plain_ms * 1e3:.1f} us, sdpa backward {library_ms * 1e3:.1f} us (turns "
-          f"{', '.join('%.1f' % (t * 1e3) for t in times['library'])}), bound "
-          f"{max(t_bytes, t_ops) * 1e3:.1f} us ({(in_bytes + out_bytes) / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP); {n_out} gradients; "
-          f"{launches[name] // TRAIN_STEPS} launches per step", flush=True)
+    print(f"  {name} bf16 B={B} H={H} L={L} S={S} D={D}, device time per call: kernel "
+          f"{ms * 1e3:.2f} us (turns {', '.join('%.2f' % (t * 1e3) for t in times['kernel'])}), "
+          f"sdpa backward {library_ms * 1e3:.2f} us (turns "
+          f"{', '.join('%.2f' % (t * 1e3) for t in times['library'])}), plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({(in_bytes + out_bytes) / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); kernel / bound "
+          f"{ms / bound_ms:.2f}, kernel / sdpa {ms / library_ms:.2f}; back-to-back calls by CUDA "
+          f"events: kernel {issue['kernel'] * 1e3:.1f} us, sdpa {issue['library'] * 1e3:.1f} us "
+          f"per call; {n_out} gradients; {launches[name] // TRAIN_STEPS} launches per step",
+          flush=True)
     print(f"  sdpa backward kernels ({name} yardstick): {backend}", flush=True)
     return {"name": name, "route": "cuda", "source": "druglamp_tpu_torch/csrc/attention_bwd.cu",
             "replaces": ("druglamp_tpu/kernels/paired_attention_pallas.py:136" if paired
                          else "druglamp_tpu/kernels/paired_attention_pallas.py:216"),
             "launches": launches[name], "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "train_ms": ms, "train_library_ms": library_ms,
+            "train_bound_ms": bound_ms}
 
 
 def device_kernels(torch, averages):
@@ -771,7 +809,7 @@ def train_timing(torch, attention, model, state, step, batch):
         print("  device busy in a step: not measured (the profiler shows no device time)",
               flush=True)
     ours = {n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3
-            for n in ("attention_fwd", "attention_dq_kernel", "attention_dkv_kernel")}
+            for n in ("attention_fwd", "attention_dq", "attention_dkv")}
     print("  attention kernels in the step (ms of device time): "
           + ", ".join(f"{n} {t:.3f}" for n, t in ours.items()), flush=True)
     print("  profiler, one train step (top 20 by self device time):", flush=True)
@@ -1091,8 +1129,7 @@ def epoch_timing(torch, state, epoch, plan, emb):
              for k in ("cudaStreamSynchronize", "cudaDeviceSynchronize")}
     h2d_bytes, h2d_copies = chrome_trace_h2d(prof)
     ours = {n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3
-            for n in ("gcn_packed_kernel", "attention_fwd", "attention_dq_kernel",
-                      "attention_dkv_kernel")}
+            for n in ("gcn_packed_kernel", "attention_fwd", "attention_dq", "attention_dkv")}
     table = averages.table(sort_by="self_device_time_total", row_limit=40)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1235,10 +1272,14 @@ def main() -> None:
             print(f"  tensor-core kernel {f}: {r}", flush=True)
             if r.get("spill_stores") or r.get("spill_loads"):
                 fail(f"{f} spills registers: {r}")
+    for D, n_sets in ((64, 2), (128, 1)):
+        print(f"  bf16 backward kernels, D={D}, {n_sets} query set(s): "
+              f"{attention.bwd_wgmma_occupancy(D, n_sets)}", flush=True)
 
     phase("3 kernels vs plain")
     serve_err = kernel_checks(torch, attention)
     train_err = backward_checks(torch, attention)
+    determinism_checks(torch, attention)
 
     phase("4 serving path")
     predictor, pairs, launches = serve_checks(torch, attention)

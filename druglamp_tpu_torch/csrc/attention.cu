@@ -253,6 +253,9 @@ cudaError_t launch(const void* q0, const void* q1, const void* k, const void* v,
 // --- bf16: the tensor-core kernel -------------------------------------------------------
 
 namespace sm90 = attn::sm90;
+using sm90::issue_pv;
+using sm90::issue_qk;
+using sm90::pack_p;
 
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -270,69 +273,6 @@ struct TcLayout {
 struct TcMaps {
   CUtensorMap q[2], k, v, o[2];
 };
-
-#define ACC8(i)                                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 64) = A Bᵀ (+ d unless scale_d is 0): A 64 rows x 16 columns and B
-// 64 rows x 16 columns, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x D) += A B: A the 64 x 16 bf16 fragment in registers, B 16 rows x D
-// columns in shared memory, MN-major (transpose bit set).
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-#undef ACC8
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-// S = Q Kᵀ of one chunk into sc (64 rows x 64 keys), issued and committed as
-// one wgmma group; the caller waits for it.
-template <int D, int kPanel>
-__device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t sq, uint32_t sk) {
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kPanel + (kk % 4) * 32;
-    wgmma_qk(sc, sm90::sw128_desc(sq + off, 16), sm90::sw128_desc(sk + off, 16), kk);
-  }
-  sm90::wgmma_commit();
-}
 
 // The online softmax of one chunk, in place: sc becomes exp2(x - m) of the
 // base-2 scaled logits x (keys ≥ S masked to -inf), m_r the new row max,
@@ -366,41 +306,9 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m_r)[2],
   }
 }
 
-// P (in sc) as the A operand of the PV product, split into bf16 P_hi + P_lo:
-// 16-key step kk holds 8-column groups 2kk and 2kk+1, so register 2h + r of
-// step kk is group 2kk + h, row half r.
-__device__ __forceinline__ void pack_p(const float (&sc)[32], uint32_t (&p_hi)[4][4],
-                                       uint32_t (&p_lo)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float p0 = sc[4 * j + 2 * r], p1 = sc[4 * j + 2 * r + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - __low2float(hi), p1 - __high2float(hi));
-      p_hi[j / 2][2 * (j % 2) + r] = bf16x2_bits(hi);
-      p_lo[j / 2][2 * (j % 2) + r] = bf16x2_bits(lo);
-    }
-}
-
-// O += P_hi V + P_lo V over one chunk, issued and committed as one wgmma group.
-template <int kPanel, int N>
-__device__ __forceinline__ void issue_pv(float (&o)[N], const uint32_t (&p_hi)[4][4],
-                                         const uint32_t (&p_lo)[4][4], uint32_t sv) {
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc_v = sm90::sw128_desc(sv + kk * 16 * 128, kPanel);
-    wgmma_pv(o, p_hi[kk], desc_v);
-    wgmma_pv(o, p_lo[kk], desc_v);
-  }
-  sm90::wgmma_commit();
-}
-
-// Warpgroup n (n < NQ) computes query set n of the tile.  In an m64nN
-// accumulator, thread t of a warpgroup holds rows 16·(t/32) + (t%32)/4 (+8)
-// and, per 8-column group j, columns 8j + 2·(t%4) (+1): d[4j + 2r + e] is row
-// half r, column e.  lse, when not null, is (NQ, gridDim.x = B·H, L).
+// Warpgroup n (n < NQ) computes query set n of the tile (the accumulator
+// layout is in attention_common.cuh).  lse, when not null, is (NQ,
+// gridDim.x = B·H, L).
 template <int D, int NQ>
 __global__ void __launch_bounds__(NQ * 128)
 attention_fwd_wgmma_kernel(const __grid_constant__ TcMaps maps, float* __restrict__ lse, int L,
@@ -494,16 +402,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ TcMaps maps, float* __restric
     inv[r] = 1.f / l_r[r];
   }
   const int rows[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
-  uint8_t* tile = smem + set * Lay::kTile;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int chunk16 = (j % 8) ^ (rows[r] % 8);
-      *reinterpret_cast<__nv_bfloat162*>(tile + (j / 8) * Lay::kPanel + rows[r] * 128 +
-                                         chunk16 * 16 + quad * 4) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
-    }
+  sm90::store_tile<D, Lay::kPanel>(smem + set * Lay::kTile, o, inv);
   if (lse != nullptr && quad == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -522,57 +421,18 @@ attention_fwd_wgmma_kernel(const __grid_constant__ TcMaps maps, float* __restric
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  return encode;
-}
-
-// A map over a contiguous (bh, rows, D) bf16 tensor in boxes of 64 rows x 64
-// columns, 128-byte swizzle; reads outside it return zeros.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int rows, int D) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {64, kRows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, int NQ>
 cudaError_t launch_wgmma(const void* q0, const void* q1, const void* k, const void* v, void* o0,
                          void* o1, float* lse, int bh, int L, int S, cudaStream_t stream) {
-  const EncodeTiled encode = tensor_map_encoder();
+  const attn::EncodeTiled encode = attn::tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   TcMaps maps;
-  const bool encoded = encode_map(encode, &maps.q[0], q0, bh, L, D) &&
-                       encode_map(encode, &maps.q[1], q1, bh, L, D) &&
-                       encode_map(encode, &maps.k, k, bh, S, D) &&
-                       encode_map(encode, &maps.v, v, bh, S, D) &&
-                       encode_map(encode, &maps.o[0], o0, bh, L, D) &&
-                       encode_map(encode, &maps.o[1], o1, bh, L, D);
+  const bool encoded = attn::encode_map(encode, &maps.q[0], q0, bh, L, D) &&
+                       attn::encode_map(encode, &maps.q[1], q1, bh, L, D) &&
+                       attn::encode_map(encode, &maps.k, k, bh, S, D) &&
+                       attn::encode_map(encode, &maps.v, v, bh, S, D) &&
+                       attn::encode_map(encode, &maps.o[0], o0, bh, L, D) &&
+                       attn::encode_map(encode, &maps.o[1], o1, bh, L, D);
   if (!encoded) return cudaErrorInvalidValue;
   auto kernel = attention_fwd_wgmma_kernel<D, NQ>;
   const size_t smem = TcLayout<D, NQ>::kBytes;

@@ -10,15 +10,16 @@ Each function has two versions in this module:
   the Pallas backward's formulas written out in f32;
 - hand-written CUDA kernels that replace the Pallas TPU kernels
   ``paired_attention_pallas`` / ``self_attention_pallas``: the forwards in
-  ``csrc/attention.cu`` (bf16 on the tensor cores, ``wgmma`` fed by TMA; f32
-  on the CUDA cores), the backwards in ``csrc/attention_bwd.cu``.
+  ``csrc/attention.cu``, the backwards in ``csrc/attention_bwd.cu``; bf16
+  on the tensor cores (``wgmma`` fed by TMA), f32 on the CUDA cores.
 
 Dispatch: a CPU tensor takes the plain version, which autograd
 differentiates (what the JAX package runs on the CPU).  A CUDA tensor launches
 the kernels, at bf16 and f32, or raises; it never falls back.  When autograd
 needs a gradient, the CUDA forward runs inside a ``torch.autograd.Function``
 (``_PairedAttention`` / ``_SelfAttention``) that also stores each row's
-log-sum-exp, and whose backward launches the backward kernel; otherwise
+log-sum-exp and keeps its outputs (the bf16 backward takes δ = rowsum(dO ⊙ O)
+from them), and whose backward launches the backward kernel; otherwise
 (serving under ``no_grad``) it saves and writes nothing extra.
 ``need_weights=True`` takes the plain version on any device, since only it
 forms probabilities.  ``LAUNCHES`` counts kernel launches per wrapper: one
@@ -115,12 +116,15 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = build.library(BWD_KERNEL_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    # (q, k, v, q_other, do1, do2, lse, delta, dq, dk, dv, dq_other, bh, L, S, D, dtype, stream)
-    lib.paired_attention_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
+    # (q, k, v, q_other, o1, o2, do1, do2, lse, delta, dq, dk, dv, dq_other, bh, L, S, D,
+    #  dtype, stream)
+    lib.paired_attention_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.paired_attention_bwd.restype = i
-    # (q, k, v, do, lse, delta, dq, dk, dv, bh, L, S, D, dtype, stream)
-    lib.self_attention_bwd.argtypes = [p] * 9 + [i] * 5 + [p]
+    # (q, k, v, o, do, lse, delta, dq, dk, dv, bh, L, S, D, dtype, stream)
+    lib.self_attention_bwd.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.self_attention_bwd.restype = i
+    lib.attention_bwd_wgmma_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.attention_bwd_wgmma_occupancy.restype = i
     return lib
 
 
@@ -195,26 +199,28 @@ def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_other: Optional[torch.Tensor], lse: torch.Tensor,
-                    grads: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+                    q_other: Optional[torch.Tensor], outs: Sequence[torch.Tensor],
+                    lse: torch.Tensor, grads: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernel on checked CUDA operands, the forward's
-    ``lse`` and the incoming gradients (one per output) → (dq, dk, dv) or,
-    paired, (dq, dk, dv, dq_other)."""
+    outputs and ``lse``, and the incoming gradients (one per output) → (dq,
+    dk, dv) or, paired, (dq, dk, dv, dq_other)."""
     B, H, L, D = q.shape
     paired = q_other is not None
     name = "paired_attention_bwd" if paired else "self_attention_bwd"
-    if len(grads) != (2 if paired else 1) or any(
+    n_sets = 2 if paired else 1
+    if len(grads) != n_sets or len(outs) != n_sets or any(
             g.shape != q.shape or g.dtype != q.dtype or g.device != q.device
-            or not g.is_contiguous() for g in grads):
-        raise ValueError(f"{name}: incoming gradients must be contiguous, one per output, "
-                         f"of the queries' shape {tuple(q.shape)} and dtype {q.dtype}")
-    check_lse(name, lse, q, len(grads))
+            or not g.is_contiguous() or g.data_ptr() % 16 for g in (*outs, *grads)):
+        raise ValueError(f"{name}: outputs and incoming gradients must be contiguous, 16-byte "
+                         f"aligned, one per output, of the queries' shape {tuple(q.shape)} and "
+                         f"dtype {q.dtype}")
+    check_lse(name, lse, q, n_sets)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     if paired:
-        args = (q, k, v, q_other, *grads, lse, delta, dq, dk, dv, torch.empty_like(q))
+        args = (q, k, v, q_other, *outs, *grads, lse, delta, dq, dk, dv, torch.empty_like(q))
     else:
-        args = (q, k, v, *grads, lse, delta, dq, dk, dv)
+        args = (q, k, v, *outs, *grads, lse, delta, dq, dk, dv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(_bwd_library(), name)(*map(_ptr, args), B * H, L, k.shape[2], D,
@@ -224,20 +230,32 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (dq, dk, dv, args[-1]) if paired else (dq, dk, dv)
 
 
+def bwd_wgmma_occupancy(D: int, n_sets: int) -> Dict[str, int]:
+    """The bf16 backward kernels at head dim D with ``n_sets`` query sets, on
+    the current card: dynamic shared memory (bytes) and resident blocks per
+    SM of the dQ and the dK/dV kernel."""
+    info = (ctypes.c_int * 4)()
+    _check_rc("attention_bwd_wgmma_occupancy",
+              _bwd_library().attention_bwd_wgmma_occupancy(D, n_sets, info))
+    return {"dq_smem": info[0], "dq_blocks_per_sm": info[1], "dkv_smem": info[2],
+            "dkv_blocks_per_sm": info[3]}
+
+
 class _PairedAttention(torch.autograd.Function):
     """The paired forward kernel, differentiated by the paired backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_other):
         outs, lse = launch_forward(q, k, v, q_other, with_lse=True)
-        ctx.save_for_backward(q, k, v, q_other, lse)
+        ctx.save_for_backward(q, k, v, q_other, lse, *outs)
         return outs
 
     @staticmethod
     def backward(ctx, do1, do2):
-        q, k, v, q_other, lse = ctx.saved_tensors
+        q, k, v, q_other, lse, o1, o2 = ctx.saved_tensors
         # the gradients arrive through _merge_heads as transposed views
-        return launch_backward(q, k, v, q_other, lse, (do1.contiguous(), do2.contiguous()))
+        return launch_backward(q, k, v, q_other, (o1, o2), lse,
+                               (do1.contiguous(), do2.contiguous()))
 
 
 class _SelfAttention(torch.autograd.Function):
@@ -246,13 +264,13 @@ class _SelfAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         (out,), lse = launch_forward(q, k, v, with_lse=True)
-        ctx.save_for_backward(q, k, v, lse)
+        ctx.save_for_backward(q, k, v, lse, out)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lse = ctx.saved_tensors
-        return launch_backward(q, k, v, None, lse, (do.contiguous(),))
+        q, k, v, lse, out = ctx.saved_tensors
+        return launch_backward(q, k, v, None, (out,), lse, (do.contiguous(),))
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:

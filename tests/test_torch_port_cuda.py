@@ -130,14 +130,17 @@ def test_serving_path_launches_the_kernels(cuda):
 @pytest.mark.parametrize("B,H,L,S,D,paired", [
     (16, 4, 256, 256, 64, True), (16, 4, 256, 256, 128, False),
     (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
+    (2, 3, 150, 70, 64, True), (2, 2, 130, 100, 128, False),
 ])
 def test_backward_kernel_matches_plain(cuda, dtype, B, H, L, S, D, paired):
     """Gradients through the autograd Function (forward and backward kernels)
     against the plain backward, with incoming gradients made non-contiguous
-    the way _merge_heads makes them.  f32: atol = rtol = 2e-5.  bf16: against
-    the plain backward run in f32 on the same bf16 inputs, within one bf16
-    ulp at each gradient's largest magnitude (the kernel computes in f32 and
-    rounds once)."""
+    the way _merge_heads makes them, at the training and ragged shapes (the
+    last two with S not a multiple of 64 and L > S).  f32: atol = rtol =
+    2e-5.  bf16: against the plain backward run in f32 on the same bf16
+    inputs, within one bf16 ulp at each gradient's largest magnitude (the
+    tensor-core kernels accumulate in f32, feed P and dS as bf16 hi + lo,
+    and round once)."""
     g = torch.Generator(device=cuda).manual_seed(1)
     rand = lambda n: torch.randn(B, H, n, D, generator=g, device=cuda).to(dtype)  # noqa: E731
     ins = [rand(L), rand(S), rand(S)] + ([rand(L)] if paired else [])
@@ -160,6 +163,25 @@ def test_backward_kernel_matches_plain(cuda, dtype, B, H, L, S, D, paired):
         for a, b in zip(got, ref):
             assert a.dtype == torch.bfloat16
             assert (a.float() - b).abs().max().item() <= _bf16_ulp(b.abs().max().item())
+
+
+@pytest.mark.parametrize("D,paired", [(64, True), (128, False)])
+def test_bf16_backward_is_deterministic(cuda, D, paired):
+    """Two bf16 backward launches on the same inputs at the training shapes
+    (B=16, H=4, L=S=256) give bit-identical gradients: the kernels sum in a
+    fixed order and use no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rand = lambda: torch.randn(16, 4, 256, D, generator=g, device=cuda).to(torch.bfloat16)  # noqa: E731
+    q, k, v = rand(), rand(), rand()
+    q_o = rand() if paired else None
+    dos = [rand() for _ in range(2 if paired else 1)]
+    outs, lse = attention.launch_forward(q, k, v, q_o, with_lse=True)
+    first = attention.launch_backward(q, k, v, q_o, outs, lse, dos)
+    second = attention.launch_backward(q, k, v, q_o, outs, lse, dos)
+    torch.cuda.synchronize()
+    assert len(first) == (4 if paired else 3)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -135,6 +135,110 @@ def test_tile_algorithm_keeps_the_bf16_tolerance(L, S, D, paired):
         torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-5, rtol=0)
 
 
+def _split(x, split=True):
+    """x as the kernels feed it to a product from registers: bf16 hi + lo
+    (or one bf16 rounding), in f32."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float() if split else hi
+
+
+def _tile_attention_bwd(qs, k, v, dos, split=(True, True, True)):
+    """What csrc/attention_bwd.cu's bf16 tensor-core kernels compute, in f32
+    torch, for the query sets ``qs`` with incoming gradients ``dos``: O and lse
+    from the forward's tile algorithm; δ = rowsum(dO ⊙ O) of the bf16 O; the dQ
+    kernel over 64-key chunks (P recomputed from lse, keys ≥ S zero), the
+    dK/dV kernel over 64-row query chunks of every set into one f32
+    accumulator; P (dV += Pᵀ dO), dS (dQ += dS K) and dSᵀ (dK += dSᵀ Q) fed as
+    bf16 hi + lo where ``split`` says so, else rounded once; f32 accumulation
+    and one rounding → ([dq per set], dk, dv) in bf16."""
+    L, S, D = qs[0].shape[-2], k.shape[-2], k.shape[-1]
+    scale = 1 / math.sqrt(D)
+    split_p, split_dq, split_dk = split
+    kf, vf = k.float(), v.float()
+    dqs, dk, dv = [], torch.zeros(k.shape), torch.zeros(v.shape)
+    for q, do in zip(qs, dos):
+        o, lse = _tile_attention(q, k, v)
+        qf, dof = q.float(), do.float()
+        delta = (dof * o.float()).sum(-1, keepdim=True)
+        dq = torch.zeros(q.shape)
+        for c0 in range(0, S, 64):                      # the dQ kernel's key chunks
+            kc, vc = kf[..., c0:c0 + 64, :], vf[..., c0:c0 + 64, :]
+            p = torch.exp(torch.matmul(qf, kc.transpose(-1, -2)) * scale - lse[..., None])
+            ds = p * (torch.matmul(dof, vc.transpose(-1, -2)) - delta)
+            dq = dq + torch.matmul(_split(ds, split_dq), kc)
+        dqs.append((dq * scale).bfloat16())
+        for r0 in range(0, L, 64):                      # the dK/dV kernel's query chunks
+            qc, doc = qf[..., r0:r0 + 64, :], dof[..., r0:r0 + 64, :]
+            pt = torch.exp(torch.matmul(kf, qc.transpose(-1, -2)) * scale
+                           - lse[..., None, r0:r0 + 64])
+            dst = pt * (torch.matmul(vf, doc.transpose(-1, -2)) - delta[..., r0:r0 + 64, 0][..., None, :])
+            dv = dv + torch.matmul(_split(pt, split_p), doc)
+            dk = dk + torch.matmul(_split(dst, split_dk), qc)
+    return dqs, (dk * scale).bfloat16(), dv.bfloat16()
+
+
+def _bf16_backward_case(L, S, D, paired, B=1, H=2, seed=6):
+    """bf16 operands and incoming gradients from numpy → (queries, k, v, dos)."""
+    q, k, v, qo, do1, do2 = (_t(a, torch.bfloat16) for a in _operands(
+        [(B, H, L, D), (B, H, S, D), (B, H, S, D), (B, H, L, D), (B, H, L, D), (B, H, L, D)],
+        seed=seed))
+    return ((q, qo) if paired else (q,)), k, v, ((do1, do2) if paired else (do1,))
+
+
+def _within_one_ulp(got, refs):
+    return all((a.float() - b.float()).abs().max().item() <= _bf16_ulp(b.float().abs().max().item())
+               for a, b in zip(got, refs))
+
+
+@pytest.mark.parametrize("L,S,D,paired", [
+    (256, 256, 64, True), (256, 256, 128, False), (37, 70, 128, True), (100, 33, 64, False),
+])
+def test_tile_backward_keeps_the_bf16_tolerance(L, S, D, paired):
+    """The bf16 backward kernels' tile algorithm on bf16 inputs: each gradient
+    within one bf16 ulp at its largest magnitude of the Pallas backward
+    (interpret mode) and of the port's plain backward run in f32 on the same
+    bf16 inputs (the card's tolerance)."""
+    qs, k, v, dos = _bf16_backward_case(L, S, D, paired)
+    dqs, dk, dv = _tile_attention_bwd(qs, k, v, dos)
+    got = [dqs[0], dk, dv] + dqs[1:]
+    fn = pk.paired_attention_pallas if paired else pk.self_attention_pallas
+    as_jax = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)  # noqa: E731
+    _, vjp = jax.vjp(fn, *map(as_jax, (qs[0], k, v) + tuple(qs[1:])))
+    pallas = vjp(tuple(map(as_jax, dos)) if paired else as_jax(dos[0]))
+    assert _within_one_ulp(got, [torch.from_numpy(np.array(x.astype(jnp.float32)))
+                                 for x in pallas])
+    plain = (attention.paired_attention_bwd_plain if paired
+             else attention.self_attention_bwd_plain)
+    assert _within_one_ulp(got, plain(*(t.float() for t in (qs[0], k, v) + qs[1:] + dos)))
+
+
+@pytest.mark.parametrize("operand,D,paired,seed", [
+    ("P for dV", 128, False, 1), ("dS for dQ", 64, True, 5),
+])
+def test_single_rounding_breaks_the_bf16_tolerance(operand, D, paired, seed):
+    """Why the kernels feed P (dV += Pᵀ dO) and dS (dQ += dS K, dK += dSᵀ Q)
+    as bf16 hi + lo: at a training shape (B=16, H=4, L=S=256) on these
+    inputs, one bf16 rounding of the named operand puts a gradient more than
+    one bf16 ulp at its largest magnitude from the f32 plain backward, while
+    the split holds every gradient within it."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, qo, do1, do2 = (torch.randn(16, 4, 256, D, generator=g).bfloat16()
+                             for _ in range(6))
+    qs, dos = ((q, qo), (do1, do2)) if paired else ((q,), (do1,))
+    if paired:
+        plain = attention.paired_attention_bwd_plain(*(t.float() for t in (q, k, v, qo, do1, do2)))
+    else:
+        plain = attention.attention_bwd_plain(*(t.float() for t in (q, k, v, do1)))
+
+    def grads(split):
+        dqs, dk, dv = _tile_attention_bwd(qs, k, v, dos, split)
+        return [dqs[0], dk, dv] + dqs[1:]
+
+    assert _within_one_ulp(grads((True, True, True)), plain)
+    single = (False, True, True) if operand == "P for dV" else (True, False, True)
+    assert not _within_one_ulp(grads(single), plain)
+
+
 def test_need_weights_returns_probabilities_without_launching():
     B, H, L, S, D = 1, 2, 8, 12, 64
     q, k, v, qo = map(_t, _operands([(B, H, L, D), (B, H, S, D), (B, H, S, D), (B, H, L, D)]))
@@ -197,6 +301,27 @@ def test_lse_checks_refuse(case):
         attention.check_lse("paired_attention_fwd", lse, q, 2)
 
 
+@pytest.mark.parametrize("case", ["count", "aligned", "contiguous", "shape"])
+def test_backward_launch_refuses_outputs_and_gradients(case):
+    """The forward's outputs and the incoming gradients that the backward
+    kernels read (the bf16 ones through TMA maps): one per output,
+    contiguous, 16-byte aligned, of the queries' shape; anything else raises
+    before a launch."""
+    q = torch.zeros(2, 2, 8, 64)
+    lse = torch.zeros(1, 4, 8)
+    outs, grads = [torch.zeros_like(q)], [torch.zeros_like(q)]
+    if case == "count":
+        outs = outs * 2
+    elif case == "aligned":  # one f32 element off a fresh buffer: 4 bytes past alignment
+        grads = [torch.zeros(q.numel() + 1)[1:].view(q.shape)]
+    elif case == "contiguous":
+        grads = [torch.zeros(2, 8, 2, 64).transpose(1, 2)]
+    else:
+        outs = [torch.zeros(2, 2, 9, 64)]
+    with pytest.raises(ValueError, match="outputs and incoming gradients"):
+        attention.launch_backward(q, q, q, None, outs, lse, grads)
+
+
 def test_build_keys_libraries_by_source_hash():
     assert "attention" in build.sources()
     path = build.library_path("attention")
@@ -250,9 +375,12 @@ def _emulated_forward(q, k, v, q_other=None, with_lse=False):
     return outs, (lse if with_lse else None)
 
 
-def _emulated_backward(q, k, v, q_other, lse, grads):
+def _emulated_backward(q, k, v, q_other, outs, lse, grads):
     assert lse.shape == (len(grads), q.shape[0] * q.shape[1], q.shape[2])
     assert all(g.is_contiguous() for g in grads)
+    qs = [q] if q_other is None else [q, q_other]
+    for o, x in zip(outs, qs):  # the forward's outputs, which the bf16 kernels read for δ
+        torch.testing.assert_close(o, attention.attention_plain(x, k, v)[0], rtol=0, atol=0)
     if q_other is None:
         return attention.self_attention_bwd_plain(q, k, v, *grads)
     return attention.paired_attention_bwd_plain(q, k, v, q_other, *grads)
