@@ -15,21 +15,22 @@
 // peak), so the floor is the memory traffic — as long as the probabilities
 // (L×S per head, twice) never reach device memory.  At the f32 non-tensor
 // rate (67 TFLOP/s) the same 4.3 GFLOP take 64 us: a kernel that multiplies
-// on the CUDA cores is bound by its arithmetic, not by the bytes.  The
+// on the CUDA cores is bound by its arithmetic, not by the bytes.  The paired
 // tensor-core kernel below runs at 2–3× the bytes bound (PERF.md §6): each
 // warpgroup waits, chunk by chunk, on its own chain of copy, QKᵀ, softmax
 // and PV.
 //
-// Both kernels take one thread block per (b·h, 64-row query tile), stream K/V
-// in 64-key chunks and keep an online softmax (running max and sum per row),
+// The f32 kernel and the paired bf16 kernel take one thread block per (b·h,
+// 64-row query tile); every kernel streams K/V in 64-key chunks and keep an online softmax (running max and sum per row),
 // so the probabilities never leave the chip and any S works.  The paired
 // kernel computes both query sets of a tile against the same K/V chunk, so
 // each K/V byte crosses from device memory once per tile for both products,
 // which is what the Pallas kernel's shared K/V load bought on the TPU.
 //
-// bf16 (attention_fwd_wgmma_kernel): the products run on the tensor cores.
-//   - One consumer warpgroup (128 threads) per query set: 2 for paired, 1 for
-//     self.  Thread 0 also issues the copies.
+// bf16 paired (attention_fwd_wgmma_kernel<D, 2>): the products run on the
+// tensor cores.
+//   - One consumer warpgroup (128 threads) per query set.  Thread 0 also
+//     issues the copies.
 //   - TMA: 3-D tensor maps over (B·H, rows, D) with 128-byte swizzle; a box
 //     is 64 rows × 64 columns (8 KB), so D = 128 is two panels.  Rows past L
 //     or S inside a slice come back as zeros, and the output's store drops
@@ -41,7 +42,9 @@
 //   - S = Q Kᵀ: wgmma m64n64k16, both operands K-major in shared memory,
 //     f32 accumulators, D/16 steps.  Keys ≥ S get -inf before the row max.
 //   - Online softmax in registers: a row of S lives in the 4 threads of a
-//     quad (shuffles 1 and 2); exponentials in base 2 with the scale folded.
+//     quad (shuffles 1 and 2); exponentials in base 2, the scale folded into
+//     one FMA; only a chunk that runs past S is masked, and a rescale by
+//     alpha = 1 is skipped.
 //   - O += P V: P is reused from the accumulator registers as the A operand
 //     (wgmma m64nDk16, 4 steps per chunk); V is the B operand read MN-major
 //     (transpose bit).  P is split into P_hi = bf16(P) and P_lo = bf16(P -
@@ -50,6 +53,19 @@
 //     6.4 GFLOP, 6.5 us at the tensor-core peak: still under the bytes bound.
 //   - Epilogue: O/l rounded to bf16 into the (swizzled) Q tile, then one TMA
 //     store per panel; lse = m + log l when asked for.
+// bf16 self (attention_fwd_ws_wgmma_kernel): the same arithmetic, warp-
+//   specialised and persistent, because one warpgroup that waits chunk by
+//   chunk on its own copy, QKᵀ, softmax and P·V left the tensor cores idle
+//   (2.1× the bytes bound at B = 32 on an H100, PERF.md §6): a producer
+//   warpgroup issues every TMA load and gives its registers to two consumer
+//   warpgroups, which own the two 64-row halves of a 128-row tile, share
+//   each K/V chunk and take turns at the tensor cores, so one's softmax
+//   overlaps the other's products.
+//   Each consumer also issues chunk c's QKᵀ with chunk c-1's P·V.  Chunks
+//   are 128 keys (S = 256 is two), so each step's products are twice as
+//   large as the paired kernel's and there are half as many waits.  One block
+//   per SM walks the tiles; Q is double-buffered and K/V run in a two-stage
+//   ring, so the next tile's loads overlap this tile's work and epilogue.
 // f32 (attention_fwd_kernel): the tensor cores have no true-f32 product, so
 //   f32 keeps the plain FMA kernel: each block stages both query sets and each
 //   K then V chunk in f32 shared memory, and a 16×16 thread grid owns register
@@ -274,36 +290,59 @@ struct TcMaps {
   CUtensorMap q[2], k, v, o[2];
 };
 
-// The online softmax of one chunk, in place: sc becomes exp2(x - m) of the
-// base-2 scaled logits x (keys ≥ S masked to -inf), m_r the new row max,
-// l_r this thread's share of the row sum; alpha = exp2(m_old - m) rescales
-// what was accumulated before.  Each chunk has at least one key < S, so the
-// new max is finite; on the first chunk alpha is 0.
-__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m_r)[2], float (&l_r)[2],
+// 2^x, flushing a subnormal result to 0 (one MUFU.EX2; exp2f adds the
+// subnormal range, which no probability here needs).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one chunk of raw logits sc = q·k (an m64 accumulator
+// of N / 2 keys key0 .. key0 + N / 2; keys ≥ S masked to -inf), in place: sc becomes exp2(x - m)
+// of the base-2 scaled logits x = sc · scale_log2, taken in one FMA, m_r the
+// new row max of x, l_r this thread's share of the row sum; alpha =
+// exp2(m_old - m) rescales what was accumulated before.  The scale is > 0,
+// so the max of the scaled logits is the scaled max.  Each chunk has at
+// least one key < S, so the new max is finite; on the first chunk alpha is 0.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N], float (&m_r)[2], float (&l_r)[2],
                                                float (&alpha)[2], int key0, int S,
                                                float scale_log2) {
-  float mx[2] = {m_r[0], m_r[1]};
+  if (key0 + 2 * N > S) {  // the chunk runs past S (the same for the whole warpgroup)
+    const int k0 = key0 + 2 * (threadIdx.x % 4);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = key0 + 8 * j + (e & 1) < S ? sc[4 * j + e] * scale_log2 : -INFINITY;
-      sc[4 * j + e] = x;
-      mx[e / 2] = fmaxf(mx[e / 2], x);
-    }
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * j + (e & 1) >= S) sc[4 * j + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = exp2f(m_r[r] - mx[r]);
-    m_r[r] = mx[r];
+    const float m_new = fmaxf(m_r[r], mx[r] * scale_log2);
+    alpha[r] = exp2_ftz(m_r[r] - m_new);
+    m_r[r] = m_new;
     l_r[r] *= alpha[r];
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    sc[i] = exp2f(sc[i] - m_r[(i / 2) % 2]);
+  for (int i = 0; i < N; ++i) {
+    sc[i] = exp2_ftz(fmaf(sc[i], scale_log2, -m_r[(i / 2) % 2]));
     l_r[(i / 2) % 2] += sc[i];
   }
+}
+
+// acc *= alpha (its row's factor), skipped when every row of the warp keeps
+// its max (alpha = 1 exactly: the product would change nothing).
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&alpha)[2]) {
+  if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= alpha[(i / 2) % 2];
 }
 
 // Warpgroup n (n < NQ) computes query set n of the tile (the accumulator
@@ -379,10 +418,9 @@ attention_fwd_wgmma_kernel(const __grid_constant__ TcMaps maps, float* __restric
     issue_qk<D, Lay::kPanel>(sc, sq, sk(c));
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
-    online_softmax(sc, m_r, l_r, alpha, c * kChunk + 2 * quad, S, scale_log2);
+    online_softmax(sc, m_r, l_r, alpha, c * kChunk, S, scale_log2);
     pack_p(sc, p_hi, p_lo);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+    rescale(o, alpha);
     sm90::mbar_wait(bar_v(c), (c >> 1) & 1);
     issue_pv<Lay::kPanel>(o, p_hi, p_lo, sv(c));
     sm90::wgmma_wait<0>();
@@ -444,6 +482,273 @@ cudaError_t launch_wgmma(const void* q0, const void* q1, const void* k, const vo
   return cudaGetLastError();
 }
 
+// --- bf16 self-attention: warp-specialised, persistent ----------------------------------
+
+constexpr int kWsChunk = 128;    // keys per K/V chunk
+constexpr int kWsStages = 2;     // K/V ring stages: a whole S = 256 in flight
+constexpr int kWsThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// The consumers' registers come from the producer's: the block holds
+// kWsThreads × (its launch count) registers, so the launch count must be at
+// least what the split needs, or setmaxnreg.inc would wait for ever.
+constexpr int kWsMinRegs = (128 * kProducerRegs + 256 * kConsumerRegs + kWsThreads - 1) / kWsThreads;
+// Named barriers: 1 + n is consumer n's turn at the tensor cores, 3 + n its
+// epilogue (0 is __syncthreads).
+constexpr int kTurnBar = 1;
+constexpr int kStoreBar = 3;
+
+template <int D>
+struct WsLayout {
+  static constexpr int kPanel = kRows * 128;       // one TMA box: 64 rows x 64 bf16 columns
+  static constexpr int kTile = (D / 64) * kPanel;  // 64 rows x D columns: a Q tile
+  static constexpr int kKVPanel = 2 * kPanel;      // a chunk's 128 rows x 64 columns: two boxes
+  static constexpr int kKVTile = (D / 64) * kKVPanel;
+  static constexpr int kK = 4 * kTile;             // after Q: 2 buffers x 2 consumer tiles
+  static constexpr int kV = kK + kWsStages * kKVTile;
+  static constexpr int kBar = kV + kWsStages * kKVTile;
+  // mbarriers: q_full[2], q_empty[2], k_full[kWsStages], v_full[kWsStages],
+  // kv_empty[kWsStages]
+  static constexpr size_t kBytes = kBar + (4 + 3 * kWsStages) * 8 + 1024;  // + 1024-byte alignment
+};
+
+// softmax(Q Kᵀ/√D) V for bf16, one query set.  Persistent blocks walk the
+// (b·h, 128-row) tiles; each block is three warpgroups:
+//   - warpgroup 0, the producer: one thread issues every TMA load (Q of a
+//     tile into one of two buffers, 128-key K and V chunks into a kWsStages
+//     ring), waiting only for buffers to be released; its registers go to
+//     the consumers (setmaxnreg).
+//   - warpgroups 1 and 2, the consumers: each owns one 64-row half of the
+//     tile against the same K/V chunks.  A consumer's step c issues QKᵀ of
+//     chunk c and P·V of chunk c-1 together, in its turn at the tensor cores
+//     (named barriers hand the turn back and forth), then runs chunk c's
+//     softmax while the other consumer's products run.
+// The arithmetic per row is that of attention_fwd_wgmma_kernel over 128-key
+// chunks (tests/test_torch_port_kernels.py::_tile_attention emulates both):
+// S = Q Kᵀ, online softmax (rescale by alpha after chunk c-1's P·V, before
+// chunk c's), P as bf16 hi + lo, O / l in bf16 by a TMA store through the
+// consumer's Q tile, lse = m + log l when asked for.
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+attention_fwd_ws_wgmma_kernel(const __grid_constant__ TcMaps maps, float* __restrict__ lse,
+                              int bh_count, int L, int S, float scale_log2) {
+  using Lay = WsLayout<D>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzled tiles are 1024-byte aligned
+  uint8_t* smem = smem_raw + (base - raw);
+
+  const int row_tiles = (L + 2 * kRows - 1) / (2 * kRows);
+  const int tiles = bh_count * row_tiles;
+  const int chunks = (S + kWsChunk - 1) / kWsChunk;
+  const uint32_t bars = base + Lay::kBar;
+  const auto q_full = [&](int b) { return bars + 8 * b; };
+  const auto q_empty = [&](int b) { return bars + 16 + 8 * b; };
+  const auto k_full = [&](int s) { return bars + 32 + 8 * s; };
+  const auto v_full = [&](int s) { return bars + 32 + 8 * (kWsStages + s); };
+  const auto kv_empty = [&](int s) { return bars + 32 + 8 * (2 * kWsStages + s); };
+  const auto sq = [&](int b, int n) { return base + (2 * b + n) * Lay::kTile; };
+  const auto sk = [&](int s) { return base + Lay::kK + s * Lay::kKVTile; };
+  const auto sv = [&](int s) { return base + Lay::kV + s * Lay::kKVTile; };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(q_full(b), 1);
+      sm90::mbar_init(q_empty(b), 2);  // one arrival per consumer
+    }
+#pragma unroll
+    for (int s = 0; s < kWsStages; ++s) {
+      sm90::mbar_init(k_full(s), 1);
+      sm90::mbar_init(v_full(s), 1);
+      sm90::mbar_init(kv_empty(s), 2);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // K/V chunks issued so far
+      int i = 0;   // tiles of this block so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+        const int bh = t / row_tiles, row0 = (t % row_tiles) * 2 * kRows;
+        const int b = i & 1;
+        sm90::mbar_wait(q_empty(b), ((i >> 1) & 1) ^ 1);  // the first use of a buffer passes
+        sm90::mbar_expect_tx(q_full(b), 2 * Lay::kTile);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int p = 0; p < kPanels; ++p)
+            sm90::tma_load_3d(sq(b, n) + p * Lay::kPanel, &maps.q[0], q_full(b), 64 * p,
+                              row0 + n * kRows, bh);
+        for (int c = 0; c < chunks; ++c, ++it) {
+          const int s = it % kWsStages;
+          sm90::mbar_wait(kv_empty(s), ((it / kWsStages) & 1) ^ 1);
+          sm90::mbar_expect_tx(k_full(s), Lay::kKVTile);
+          sm90::mbar_expect_tx(v_full(s), Lay::kKVTile);
+#pragma unroll
+          for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // the chunk's two 64-row boxes of panel p
+              const uint32_t off = p * Lay::kKVPanel + h * Lay::kPanel;
+              const int row = c * kWsChunk + h * kRows;
+              sm90::tma_load_3d(sk(s) + off, &maps.k, k_full(s), 64 * p, row, bh);
+              sm90::tma_load_3d(sv(s) + off, &maps.v, v_full(s), 64 * p, row, bh);
+            }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int n = threadIdx.x / 128 - 1;  // which 64-row half of the tile
+    const int t128 = threadIdx.x % 128;
+    const int warp = t128 / 32, lane = t128 % 32, quad = lane % 4;
+    const int rows[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
+    if (n == 1) sm90::named_barrier_arrive(kTurnBar, 256);  // consumer 0 goes first
+
+    constexpr int kSteps = kWsChunk / 16;  // 16-key steps of P·V per chunk
+    float o[D / 2], sc[kWsChunk / 2], alpha[2], m_r[2], l_r[2];
+    uint32_t p_hi[kSteps][4], p_lo[kSteps][4];
+#pragma unroll
+    for (int i = 0; i < kWsChunk / 2; ++i) sc[i] = 0.f;  // defined for the compiler: QKᵀ overwrites it
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p_hi[k][e] = p_lo[k][e] = 0u;
+    int it = 0, i = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+      const int bh = t / row_tiles, row0 = (t % row_tiles) * 2 * kRows + n * kRows;
+      const int b = i & 1;
+      const bool last_tile = t + gridDim.x >= tiles;
+      const uint32_t q = sq(b, n);
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+      m_r[0] = m_r[1] = -INFINITY;  // running row max, base-2 scaled logits
+      l_r[0] = l_r[1] = 0.f;        // this thread's share of the running row sum
+      sm90::mbar_wait(q_full(b), (i >> 1) & 1);
+
+      const auto stage = [&](int c) { return (it + c) % kWsStages; };
+      const auto parity = [&](int c) { return static_cast<uint32_t>((it + c) / kWsStages) & 1; };
+      // Each step issues its products in this consumer's turn and hands the
+      // turn over; consumer 1's last step has no turn of consumer 0 after it.
+      // wgmma issues stay out of conditional code: ptxas serialises them there.
+      const auto take_turn = [&] { sm90::named_barrier(kTurnBar + n, 256); };
+      const auto pass_turn = [&](bool last_step) {
+        if (!(n == 1 && last_tile && last_step)) sm90::named_barrier_arrive(kTurnBar + 1 - n, 256);
+      };
+
+      // step 0: QKᵀ of chunk 0 (o is 0: nothing to rescale)
+      sm90::mbar_wait(k_full(stage(0)), parity(0));
+      take_turn();
+      issue_qk<D, Lay::kPanel, Lay::kKVPanel>(sc, q, sk(stage(0)));
+      pass_turn(false);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      online_softmax(sc, m_r, l_r, alpha, 0, S, scale_log2);
+      pack_p(sc, p_hi, p_lo);
+      // step c: QKᵀ of chunk c with P·V of chunk c - 1; chunk c's softmax runs
+      // while P·V does
+      for (int c = 1; c < chunks; ++c) {
+        sm90::mbar_wait(k_full(stage(c)), parity(c));
+        sm90::mbar_wait(v_full(stage(c - 1)), parity(c - 1));
+        take_turn();
+        issue_qk<D, Lay::kPanel, Lay::kKVPanel>(sc, q, sk(stage(c)));
+        issue_pv<Lay::kKVPanel>(o, p_hi, p_lo, sv(stage(c - 1)));
+        pass_turn(false);
+        sm90::wgmma_wait<1>();  // QKᵀ, committed first, is done
+        sm90::fence_regs(sc);
+        online_softmax(sc, m_r, l_r, alpha, c * kWsChunk, S, scale_log2);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+        sm90::fence_regs(p_hi);
+        sm90::fence_regs(p_lo);
+        if (t128 == 0) sm90::mbar_arrive(kv_empty(stage(c - 1)));  // done with chunk c - 1
+        pack_p(sc, p_hi, p_lo);
+        rescale(o, alpha);
+      }
+      // last step: P·V of the last chunk
+      sm90::mbar_wait(v_full(stage(chunks - 1)), parity(chunks - 1));
+      take_turn();
+      issue_pv<Lay::kKVPanel>(o, p_hi, p_lo, sv(stage(chunks - 1)));
+      pass_turn(true);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      if (t128 == 0) sm90::mbar_arrive(kv_empty(stage(chunks - 1)));
+      it += chunks;
+
+      // epilogue: O / l in bf16 into this consumer's Q tile, swizzled as TMA expects
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+        l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+        inv[r] = 1.f / l_r[r];
+      }
+      sm90::store_tile<D, Lay::kPanel>(smem + (q - base), o, inv);
+      if (lse != nullptr && quad == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + rows[r];
+          if (row < L) lse[(size_t)bh * L + row] = (m_r[r] + log2f(l_r[r])) * kLn2;
+        }
+      }
+      sm90::fence_proxy_async();
+      sm90::named_barrier(kStoreBar + n, 128);
+      if (t128 == 0) {
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p)
+          sm90::tma_store_3d(&maps.o[0], q + p * Lay::kPanel, 64 * p, row0, bh);
+        sm90::tma_store_commit_and_wait();  // the tile is read: Q's buffer may be refilled
+        sm90::mbar_arrive(q_empty(b));
+      }
+    }
+  }
+}
+
+// The number of SMs of the current device (the persistent grid's size).
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+template <int D>
+cudaError_t launch_self_ws(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int bh, int L, int S, cudaStream_t stream) {
+  const attn::EncodeTiled encode = attn::tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  TcMaps maps;
+  const bool encoded = attn::encode_map(encode, &maps.q[0], q, bh, L, D) &&
+                       attn::encode_map(encode, &maps.k, k, bh, S, D) &&
+                       attn::encode_map(encode, &maps.v, v, bh, S, D) &&
+                       attn::encode_map(encode, &maps.o[0], o, bh, L, D);
+  if (!encoded) return cudaErrorInvalidValue;
+  maps.q[1] = maps.q[0];
+  maps.o[1] = maps.o[0];
+  auto kernel = attention_fwd_ws_wgmma_kernel<D>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs < kWsMinRegs) return cudaErrorInvalidConfiguration;
+  const size_t smem = WsLayout<D>::kBytes;
+  err = attn::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = bh * ((L + 2 * kRows - 1) / (2 * kRows));
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const float scale_log2 = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
+  kernel<<<tiles < sms ? tiles : sms, kWsThreads, smem, stream>>>(maps, lse, bh, L, S,
+                                                                 scale_log2);
+  return cudaGetLastError();
+}
+
 template <int NQ>
 int dispatch(const void* q0, const void* q1, const void* k, const void* v, void* o0, void* o1,
              void* lse_ptr, int bh, int L, int S, int D, int dtype, void* stream) {
@@ -453,10 +758,15 @@ int dispatch(const void* q0, const void* q1, const void* k, const void* v, void*
   if (dtype == 0 && D == 64) return launch<float, 64, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
-  if (dtype == 1 && D == 64)
-    return launch_wgmma<64, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
-  if (dtype == 1 && D == 128)
-    return launch_wgmma<128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
+  if constexpr (NQ == 1) {
+    if (dtype == 1 && D == 64) return launch_self_ws<64>(q0, k, v, o0, lse, bh, L, S, st);
+    if (dtype == 1 && D == 128) return launch_self_ws<128>(q0, k, v, o0, lse, bh, L, S, st);
+  } else {
+    if (dtype == 1 && D == 64)
+      return launch_wgmma<64, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
+    if (dtype == 1 && D == 128)
+      return launch_wgmma<128, NQ>(q0, q1, k, v, o0, o1, lse, bh, L, S, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

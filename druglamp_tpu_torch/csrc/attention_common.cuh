@@ -51,6 +51,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// One arrival (of the count given at init), without bytes.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 // Returns once the phase of the given parity has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
@@ -104,6 +109,18 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // that named_barrier on the same id and count wait for it.
 __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Lowers (dec) or raises (inc) this warpgroup's registers per thread; all
+// four warps execute it together.  Warp-specialised kernels move registers
+// from the producer warpgroup to the consumers this way.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -173,6 +190,22 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 128) = A Bᵀ (+ d unless scale_d is 0), as above with B 128 rows.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ATTN_ACC8(0), ATTN_ACC8(8), ATTN_ACC8(16), ATTN_ACC8(24), ATTN_ACC8(32), ATTN_ACC8(40),
+        ATTN_ACC8(48), ATTN_ACC8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x D) += A B: A the 64 x 16 bf16 fragment in registers, B 16 rows x D
 // columns in shared memory, MN-major (transpose bit set).
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -206,28 +239,31 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// d (64 x 64) = A Bᵀ over D columns (S = Q Kᵀ in the forward), both tiles
-// K-major at shared addresses sa and sb, issued and committed as one wgmma
+// d (64 x 2N: 64 or 128 columns) = A Bᵀ over D columns (S = Q Kᵀ in the
+// forward), both tiles K-major at shared addresses sa and sb, their 64-column
+// panels kPanel and kPanelB bytes apart, issued and committed as one wgmma
 // group; the caller waits for it.
-template <int D, int kPanel>
-__device__ __forceinline__ void issue_qk(float (&d)[32], uint32_t sa, uint32_t sb) {
+template <int D, int kPanel, int kPanelB = kPanel, int N>
+__device__ __forceinline__ void issue_qk(float (&d)[N], uint32_t sa, uint32_t sb) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kPanel + (kk % 4) * 32;
-    wgmma_qk(d, sw128_desc(sa + off, 16), sw128_desc(sb + off, 16), kk);
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_qk(d, sw128_desc(sa + (kk / 4) * kPanel + col, 16),
+             sw128_desc(sb + (kk / 4) * kPanelB + col, 16), kk);
   }
   wgmma_commit();
 }
 
-// A 64 x 64 f32 accumulator (P in the forward) as the A operand of a product
-// over its 64 columns, split into bf16 hi = bf16(x) and lo = bf16(x - hi):
-// 16-column step kk holds 8-column groups 2kk and 2kk+1, so register 2h + r
-// of step kk is group 2kk + h, row half r.
-__device__ __forceinline__ void pack_p(const float (&x)[32], uint32_t (&hi)[4][4],
-                                       uint32_t (&lo)[4][4]) {
+// A 64 x 16·KK f32 accumulator (P in the forward) as the A operand of a
+// product over its columns, split into bf16 hi = bf16(x) and lo = bf16(x -
+// hi): 16-column step kk holds 8-column groups 2kk and 2kk+1, so register
+// 2h + r of step kk is group 2kk + h, row half r.
+template <int KK>
+__device__ __forceinline__ void pack_p(const float (&x)[8 * KK], uint32_t (&hi)[KK][4],
+                                       uint32_t (&lo)[KK][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 2 * KK; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float x0 = x[4 * j + 2 * r], x1 = x[4 * j + 2 * r + 1];
@@ -238,14 +274,15 @@ __device__ __forceinline__ void pack_p(const float (&x)[32], uint32_t (&hi)[4][4
     }
 }
 
-// d += hi B + lo B (O += P V in the forward) over B's 64 rows, B MN-major at
-// shared address sb, issued and committed as one wgmma group.
-template <int kPanel, int N>
-__device__ __forceinline__ void issue_pv(float (&d)[N], const uint32_t (&hi)[4][4],
-                                         const uint32_t (&lo)[4][4], uint32_t sb) {
+// d += hi B + lo B (O += P V in the forward) over B's 16·KK rows, B MN-major
+// at shared address sb with its 64-column panels kPanel bytes apart, issued
+// and committed as one wgmma group.
+template <int kPanel, int N, int KK>
+__device__ __forceinline__ void issue_pv(float (&d)[N], const uint32_t (&hi)[KK][4],
+                                         const uint32_t (&lo)[KK][4], uint32_t sb) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KK; ++kk) {
     const uint64_t desc = sw128_desc(sb + kk * 16 * 128, kPanel);
     wgmma_pv(d, hi[kk], desc);
     wgmma_pv(d, lo[kk], desc);

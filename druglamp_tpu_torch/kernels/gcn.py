@@ -40,7 +40,7 @@ from druglamp_tpu_torch.data.encoding import unpack_bits
 from druglamp_tpu_torch.kernels import build
 
 KERNEL_SOURCE = "gcn_packed"
-ROW_TILE = 64                     # N must be a multiple of the kernel's row tile
+ROW_TILE = 64                     # N must be a multiple of 64: each row's bits are whole words
 CHANNELS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,6 +118,8 @@ def check_operands(packed: torch.Tensor, nrm: torch.Tensor, n2r: torch.Tensor,
         raise ValueError("packed GCN operands must all lie on one CUDA device")
     if packed.data_ptr() % 4 != 0:
         raise ValueError("packed GCN: the bits must be 4-byte aligned (read as 32-bit words)")
+    if x.data_ptr() % 16 != 0:
+        raise ValueError("packed GCN: x must be 16-byte aligned (read as vectors)")
 
 
 def launch(packed: torch.Tensor, nrm: torch.Tensor, n2r: torch.Tensor, x: torch.Tensor,

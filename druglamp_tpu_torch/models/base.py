@@ -11,6 +11,8 @@ model then creates no parameters for them.
 
 from __future__ import annotations
 
+from typing import Any, Dict, Optional
+
 import torch
 from torch import nn
 
@@ -22,6 +24,7 @@ from druglamp_tpu_torch.nn.mhla import MultiHeadLinearAttention
 from druglamp_tpu_torch.nn.mlp import FeedForwardLayer, MLPClassifier
 from druglamp_tpu_torch.nn.pmma import PairedMultimodalAttention
 from druglamp_tpu_torch.nn.protein_cnn import ProteinCNN
+from druglamp_tpu_torch.utils.numerics import true_f32
 
 
 class DrugLAMPBase(nn.Module):
@@ -75,6 +78,12 @@ class DrugLAMPBase(nn.Module):
         dec = cfg.decoder
         self.mlp_classifier = MLPClassifier(in_dim=dec.in_dim * 2, hidden_dim=dec.hidden_dim * 2,
                                             out_dim=dec.out_dim * 2, binary=dec.binary)
+
+    def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """The variant's ``_forward`` with its f32 products in true f32."""
+        with true_f32():
+            return self._forward(batch, need_attn, generator)
 
     # --- shared forward pieces ---------------------------------------------
 

@@ -10,7 +10,9 @@ and return a dict: ``score`` (B,1) f32, the GCA raw logits ``A_v_gca`` /
 ``A_x_gca`` when ``need_attn``, and the PMMA maps ``attn`` / ``guided_attn``
 when the model was built with ``vis``.  In train mode (``model.train()``)
 BatchNorm uses and updates batch statistics and dropout draws its masks from
-``generator``.  The SSL and CM heads are not ported yet.
+``generator``.  ``forward`` (``DrugLAMPBase``) runs each variant's
+``_forward`` under ``utils.numerics.true_f32()``: its f32 products are true
+f32 whatever torch's TF32 settings.  The SSL and CM heads are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ def _outputs(score, A_v, A_x, attn, guided_attn) -> Dict[str, Any]:
 class DrugLAMP(DrugLAMPBase):
     """Full 4-stream model."""
 
-    def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    def _forward(self, batch: Dict[str, torch.Tensor], need_attn: bool,
+                 generator: Optional[torch.Generator]) -> Dict[str, Any]:
         vd, vp = self._extract(batch)
         xp, xd = self._llm_inputs(batch)
         xp = self._encode_prot_llm(self._site_pool(xp))
@@ -48,8 +50,8 @@ class DrugLAMPwoLLM(DrugLAMPBase):
 
     uses_llm = False
 
-    def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    def _forward(self, batch: Dict[str, torch.Tensor], need_attn: bool,
+                 generator: Optional[torch.Generator]) -> Dict[str, Any]:
         vd, vp = self._extract(batch)
         mv, A_v = self._fuse_v(vp, vd, need_attn, generator)
         f, attn, guided_attn = self.pmma(mv, mv, generator)

@@ -19,7 +19,12 @@ on the device; its adjacency stays packed where ``kernels.gcn.use_packed_gcn``
 says so) → train-mode forward (BatchNorm uses batch statistics and updates
 its running stats in place, as flax's ``mutable=["batch_stats"]``; dropout
 masks come from ``generator``) → the cls loss, mean over all rows → one
-``backward()`` → an AdamW step of ``opt_cls`` at ``lr_cls``.  With the cls
+``backward()`` → an AdamW step of ``opt_cls`` at ``lr_cls``, all under
+``utils.numerics.train_numerics(deterministic)``: f32 products in true f32
+(no TF32) and, with ``deterministic=True`` (the default of
+``make_train_step`` and ``make_epoch_step_gather``), cuDNN's deterministic
+algorithms, so two runs from one seed give bit-identical parameters; the
+caller's settings are back after each step.  With the cls
 loss alone both grad modes apply the cls gradient, so both are accepted.  On
 a CUDA model the PMMA attention and the packed GCN run through their
 hand-written kernels, forward and backward.  After the step each parameter's
@@ -27,8 +32,10 @@ hand-written kernels, forward and backward.  After the step each parameter's
 
 The epoch driver runs S steps in one call, each gathering its batch from the
 device-resident dataset by the (S, B) index plan; the chunk's LLM embeddings
-are gathered once before the loop.  The losses stay on the device as (S,)
-tensors: nothing inside the loop reads a value back to the host.
+are gathered once before the loop.  A plan given as numpy goes to the device
+once, before the loop, from pinned memory without a host wait.  The losses
+stay on the device as (S,) tensors: nothing inside the loop (the profiler
+range ``epoch_step.loop``) reads a value back or waits for the device.
 
 Not ported yet, and refused: the SSL and CM gates and the CM weight
 calibration (the SSL/CM slice), the flat optimizer, remat, and the drivers
@@ -39,8 +46,9 @@ over host-stacked batches (``make_epoch_step``, ``make_eval_scan``,
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -49,6 +57,7 @@ from druglamp_tpu_torch.data.encoding import decode_batch
 from druglamp_tpu_torch.losses.classification import binary_cross_entropy, cross_entropy_logits
 from druglamp_tpu_torch.serve import resolve_device
 from druglamp_tpu_torch.train.state import TrainState, apply_optimizer
+from druglamp_tpu_torch.utils.numerics import train_numerics
 
 GRAD_MODES = ("per_loss", "legacy_aliased")
 
@@ -83,7 +92,8 @@ def _on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
 
 
 def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool,
-                    grad_mode: str, n_class: int) -> Callable[..., StepOutput]:
+                    grad_mode: str, n_class: int,
+                    deterministic: bool) -> Callable[..., StepOutput]:
     """The single-step transition shared by ``make_train_step`` and
     ``make_epoch_step_gather``: ``body(state, batch, generator, lr_cls,
     lr_ssl, lr_cm, margin, cm_weight)`` on a batch of tensors on the model's
@@ -101,10 +111,11 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
         batch = decode_batch(batch, batch.pop("_store", None))
         model.train()
         model.zero_grad(set_to_none=True)
-        out = model(batch, generator=generator)
-        probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
-        cls_loss.backward()
-        apply_optimizer(state.opt_cls, lr_cls)
+        with train_numerics(deterministic):
+            out = model(batch, generator=generator)
+            probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
+            cls_loss.backward()
+            apply_optimizer(state.opt_cls, lr_cls)
         state.step += 1
         zero = torch.zeros((), device=cls_loss.device)
         return StepOutput(state, cls_loss.detach(), zero, zero, probs.detach(),
@@ -114,16 +125,17 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
 
 
 def make_train_step(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool = False,
-                    grad_mode: str = "per_loss", n_class: int = 1,
-                    device="cuda") -> Callable[..., StepOutput]:
+                    grad_mode: str = "per_loss", n_class: int = 1, device="cuda",
+                    deterministic: bool = True) -> Callable[..., StepOutput]:
     """The per-step train function for one gate combination:
     ``step(state, batch, generator, lr_cls, lr_ssl=0, lr_cm=0, margin=0.5,
     cm_weight=1.0) → StepOutput``.  ``batch`` is a compact or standard
     batch (numpy arrays or tensors, moved to ``device``); ``generator``
     draws the dropout masks (a ``torch.Generator`` on ``device``, or None
-    for torch's default)."""
+    for torch's default).  ``deterministic`` runs each step with cuDNN's
+    deterministic algorithms (set for the step only)."""
     dev = resolve_device(device)
-    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class)
+    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class, deterministic)
     model.to(dev)
 
     def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator],
@@ -164,46 +176,64 @@ def _pregather_embeddings(data_tree: Dict[str, torch.Tensor], emb_store, idx: to
             "xp_src": g(pe, pord), "xp_len": g(emb_store["prot_len"], pord)}
 
 
+def _plan_to_device(a, device: torch.device) -> torch.Tensor:
+    """The plan on ``device``.  From the host to a card it is staged in
+    pinned memory and copied without blocking: a copy from pageable memory
+    makes the host wait for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _plan_batches(idx, valid, data_tree, emb_store, include_llm: bool, emb_ordinals: bool,
-                  device: torch.device):
-    """The compact batches of an (S, B) index plan, gathered on the device
-    one step at a time (the plan is copied to the device once)."""
-    idx = torch.as_tensor(idx, device=device)
-    valid = torch.as_tensor(valid, device=device)
+                  device: torch.device) -> Iterator[Dict[str, Any]]:
+    """The compact batches of an (S, B) index plan.  The plan's copy to the
+    device and the chunk's pre-gather run now; the returned iterator gathers
+    each step's batch on the device when it is reached."""
+    idx = _plan_to_device(idx, device)
+    valid = _plan_to_device(valid, device)
     pref = _pregather_embeddings(data_tree, emb_store, idx, include_llm and emb_ordinals)
-    for s in range(idx.shape[0]):
-        batch = gather_compact_batch(data_tree, idx[s], valid[s], include_llm, emb_ordinals,
-                                     emb_store)
-        if pref is not None:
-            del batch["drug_ord"], batch["prot_ord"]
-            batch.update({k: v[s] for k, v in pref.items()})     # xd/d_ntok/xp_src/xp_len
-        elif emb_store is not None:
-            batch["_store"] = emb_store
-        yield batch
+
+    def batches():
+        for s in range(idx.shape[0]):
+            batch = gather_compact_batch(data_tree, idx[s], valid[s], include_llm, emb_ordinals,
+                                         emb_store)
+            if pref is not None:
+                del batch["drug_ord"], batch["prot_ord"]
+                batch.update({k: v[s] for k, v in pref.items()})  # xd/d_ntok/xp_src/xp_len
+            elif emb_store is not None:
+                batch["_store"] = emb_store
+            yield batch
+
+    return batches()
 
 
 def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, include_llm: bool,
                            emb_ordinals: bool, calibrate: bool = False,
-                           grad_mode: str = "per_loss", n_class: int = 1,
-                           device="cuda") -> Callable[..., EpochOutput]:
+                           grad_mode: str = "per_loss", n_class: int = 1, device="cuda",
+                           deterministic: bool = True) -> Callable[..., EpochOutput]:
     """The epoch-chunk driver over the device-resident dataset
     (``data/device_data.py``): ``epoch(state, idx, valid, data_tree,
     emb_store, generator, lr_cls, lr_ssl=0, lr_cm=0, margin=0.5,
     cm_weight=1.0) → EpochOutput`` runs S steps, one per row of the (S, B)
     index plan ``idx`` (numpy or tensor) with its validity mask ``valid``.
     ``data_tree`` is ``DeviceDataStore.tree_for(dataset)``, ``emb_store`` a
-    ``DeviceEmbeddingStore.tree`` or None (woLLM)."""
+    ``DeviceEmbeddingStore.tree`` or None (woLLM).  ``deterministic`` as in
+    ``make_train_step``."""
     dev = resolve_device(device)
-    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class)
+    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class, deterministic)
     model.to(dev)
 
     def epoch_step(state: TrainState, idx, valid, data_tree: Dict[str, torch.Tensor],
                    emb_store, generator: Optional[torch.Generator], lr_cls: float,
                    lr_ssl: float = 0.0, lr_cm: float = 0.0, margin: float = 0.5,
                    cm_weight: float = 1.0) -> EpochOutput:
-        outs = [body(state, batch, generator, lr_cls, lr_ssl, lr_cm, margin, cm_weight)
-                for batch in _plan_batches(idx, valid, data_tree, emb_store, include_llm,
-                                           emb_ordinals, dev)]
+        batches = _plan_batches(idx, valid, data_tree, emb_store, include_llm, emb_ordinals,
+                                dev)
+        with torch.profiler.record_function("epoch_step.loop"):
+            outs = [body(state, batch, generator, lr_cls, lr_ssl, lr_cm, margin, cm_weight)
+                    for batch in batches]
         if not outs:
             raise ValueError("empty index plan")
         return EpochOutput(state, torch.stack([o.cls_loss for o in outs]),

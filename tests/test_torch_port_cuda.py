@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels on a card: each forward and backward
 against its plain PyTorch version, the wrappers' refusals, the gradients that
 reach PMMA's projections through the kernels, and the launch counts of the
-serving path and of a full-width train step.
+serving path and of a full-width train step.  Also the f32 numerics on the
+card: forwards in true f32 under torch's default TF32 settings, and f32
+train steps that repeat bit for bit.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports neither JAX nor the JAX package, so on a machine with a card and
@@ -39,6 +41,7 @@ def cuda():
     (32, 4, 256, 256, 64, True), (32, 4, 256, 256, 128, False),
     (16, 4, 256, 256, 64, True), (16, 4, 256, 256, 128, False),
     (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
+    (1, 4, 256, 256, 128, False), (2, 3, 200, 130, 128, False), (2, 2, 70, 300, 128, False),
 ])
 def test_kernel_matches_plain(cuda, dtype, B, H, L, S, D, paired):
     """Serving (B=32), training (B=16) and ragged shapes.  f32 (FMA kernel):
@@ -68,7 +71,7 @@ def test_kernel_matches_plain(cuda, dtype, B, H, L, S, D, paired):
 
 @pytest.mark.parametrize("B,H,L,S,D,paired", [
     (32, 4, 256, 256, 64, True), (32, 4, 256, 256, 128, False),
-    (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
+    (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False), (2, 3, 200, 130, 128, False),
 ])
 def test_bf16_forward_lse_matches_plain(cuda, B, H, L, S, D, paired):
     """The tensor-core forward's (NQ, B·H, L) log-sum-exp, which the backward
@@ -184,6 +187,19 @@ def test_bf16_backward_is_deterministic(cuda, D, paired):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B", [32, 16])
+def test_bf16_self_forward_is_deterministic(cuda, B):
+    """Two launches of the bf16 self forward on the same inputs give
+    bit-identical outputs and lse."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(B, 4, 256, 128, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    (o1,), lse1 = attention.launch_forward(q, k, v, None, with_lse=True)
+    (o2,), lse2 = attention.launch_forward(q, k, v, None, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_every_projection_gets_a_gradient_through_the_kernels(cuda, dtype):
     """One backward through a paired and a self PMMA block on the card: every
@@ -261,7 +277,7 @@ def _packed_case(cuda, B, N, C, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,C", [(16, 512, 128), (3, 256, 64)])
+@pytest.mark.parametrize("B,N,C", [(1, 64, 64), (16, 512, 128), (64, 512, 128), (3, 256, 64)])
 def test_gcn_packed_kernel_matches_plain(cuda, dtype, B, N, C):
     """Forward and backward (through the autograd Function: the backward is
     a second launch on dy cast to x's dtype) against the plain version, and
@@ -290,6 +306,19 @@ def test_gcn_packed_kernel_matches_plain(cuda, dtype, B, N, C):
         assert (dx.float() - ref_dx).abs().max().item() <= _bf16_ulp(ref_dx.abs().max().item())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gcn_packed_kernel_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs at the training shape give
+    bit-identical outputs (each warp sums its own row in a fixed order)."""
+    from druglamp_tpu_torch.kernels import gcn
+
+    packed, nrm, n2r, x, _ = _packed_case(cuda, 16, 512, 128, dtype, seed=5)
+    first = gcn.gcn_packed_matmul(packed, nrm, n2r, x)
+    second = gcn.gcn_packed_matmul(packed, nrm, n2r, x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_gcn_packed_kernel_raises_instead_of_falling_back(cuda):
     from druglamp_tpu_torch.kernels import gcn
 
@@ -303,6 +332,9 @@ def test_gcn_packed_kernel_raises_instead_of_falling_back(cuda):
         gcn.gcn_packed_matmul(packed, nrm, n2r, x[..., :32].contiguous())
     with pytest.raises(ValueError, match="dtype"):
         gcn.gcn_packed_matmul(packed, nrm, n2r, x.half())
+    shifted = torch.zeros(x.numel() + 1, device=cuda)[1:].view(x.shape)   # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gcn.gcn_packed_matmul(packed, nrm, n2r, shifted)
     assert gcn.LAUNCHES == before
 
 
@@ -338,3 +370,93 @@ def test_packed_gate_keeps_the_adjacency_packed_and_launches_the_kernel(cuda, mo
     assert torch.isfinite(out.cls_loss)
     grads = [model.get_parameter(f"drug_extractor.layer_{i}.graph.weight").grad for i in range(3)]
     assert all(g is not None and g.abs().max() > 0 for g in grads)
+
+
+# --- f32 numerics on the card: TF32 and determinism -----------------------------------------
+
+def _f32_trainer(cuda, name="DrugLAMP"):
+    """(model, state, compact batch of 16) at full width in f32, seed 0."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import compact_batch
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.utils.synthetic import make_batch
+
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, compute_dtype="float32"))
+    model = build_model(name, cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    host = make_batch(cfg, 16, seed=0, n_drug_feature=384, n_prot_feature=640)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in compact_batch(host, (host["d_fill"] == 0).sum(1)).items()}
+    return cfg, model, TrainState.create(model), batch
+
+
+@pytest.mark.parametrize("matmul", ["highest", "high"])
+def test_f32_forwards_ignore_the_tf32_settings(cuda, matmul):
+    """ProteinCNN and DrugLAMP in f32 under torch's default TF32 settings
+    (cuDNN TF32 on), and under a caller's matmul precision "high", within
+    2e-5 of the same forwards with TF32 off (the forward-score tolerance of
+    docs/PARITY.md); the caller's settings are unchanged afterwards."""
+    from druglamp_tpu_torch.data.encoding import decode_batch
+    from druglamp_tpu_torch.nn.protein_cnn import ProteinCNN
+
+    cfg, model, _, batch = _f32_trainer(cuda)
+    model.eval()
+    decoded = decode_batch(dict(batch))
+    cnn = ProteinCNN(embedding_dim=128, num_filters=(128,) * 3, kernel_size=(3, 6, 9),
+                     dtype=torch.float32)
+    cnn.init_weights(torch.Generator().manual_seed(1))
+    cnn = cnn.to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(6)
+    v = torch.randint(0, 26, (16, 2304), generator=g, device=cuda)
+    fill = (torch.rand(16, 2304, generator=g, device=cuda) < 0.1).float()
+    with torch.no_grad():
+        ref = cnn(v, fill), model(decoded)["score"]
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision(matmul)
+        try:
+            got = cnn(v, fill), model(decoded)["score"]
+            kept = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+    assert kept == (True, matmul)
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 2e-5
+
+
+def test_two_f32_steps_are_bit_identical(cuda):
+    """Two f32 train steps of DrugLAMP from one seed (dropout 0.1 from one
+    generator seed, lr 1e-4): bit-identical parameters and gradients, leaf by
+    leaf (make_train_step's default deterministic=True)."""
+    from druglamp_tpu_torch.train.steps import make_train_step
+
+    runs = []
+    for _ in range(2):
+        _, model, state, batch = _f32_trainer(cuda)
+        step = make_train_step(model, False, False)
+        step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4)
+        torch.cuda.synchronize()
+        runs.append({n: (p.detach().clone(), p.grad.clone()) for n, p in model.named_parameters()})
+    assert runs[0].keys() == runs[1].keys()
+    for n, (p, g) in runs[0].items():
+        assert torch.equal(p, runs[1][n][0]) and torch.equal(g, runs[1][n][1]), n
+
+
+def test_f32_step_runs_under_deterministic_algorithms(cuda, monkeypatch):
+    """One f32 step under torch.use_deterministic_algorithms(True): no op of
+    the step lacks a deterministic implementation (torch would raise)."""
+    from druglamp_tpu_torch.train.steps import make_train_step
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    _, model, state, batch = _f32_trainer(cuda)
+    step = make_train_step(model, False, False)
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(out.cls_loss)

@@ -80,19 +80,24 @@ def test_bf16_inputs():
         assert np.abs(out.float().numpy() - ref).max() <= _bf16_ulp(np.abs(ref).max())
 
 
-def _tile_attention(q, k, v):
-    """What csrc/attention.cu's bf16 tensor-core kernel computes, in f32 torch:
-    an online softmax over 64-key chunks (keys ≥ S of the last chunk are zero
-    rows masked to -inf), P split into bf16 terms P_hi + P_lo, both products
-    accumulated in f32, O/l rounded to bf16 → (out, lse)."""
+# Keys per chunk of the bf16 forward kernels (csrc/attention.cu): the paired
+# kernel's and the self kernel's.
+PAIRED_CHUNK, SELF_CHUNK = 64, 128
+
+
+def _tile_attention(q, k, v, chunk=PAIRED_CHUNK):
+    """What csrc/attention.cu's bf16 tensor-core kernels compute, in f32
+    torch: an online softmax over ``chunk``-key chunks (keys ≥ S of the last
+    chunk are zero rows masked to -inf), P split into bf16 terms P_hi + P_lo,
+    both products accumulated in f32, O/l rounded to bf16 → (out, lse)."""
     qf, kf, vf = q.float(), k.float(), v.float()
     S, D = k.shape[-2], k.shape[-1]
-    pad = -S % 64
+    pad = -S % chunk
     kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (kf, vf))
     m = torch.full(q.shape[:-1], -math.inf)
     l, acc = torch.zeros(q.shape[:-1]), torch.zeros(q.shape)
-    for c0 in range(0, S, 64):
-        s = torch.matmul(qf, kf[..., c0:c0 + 64, :].transpose(-1, -2)) / math.sqrt(D)
+    for c0 in range(0, S, chunk):
+        s = torch.matmul(qf, kf[..., c0:c0 + chunk, :].transpose(-1, -2)) / math.sqrt(D)
         s[..., max(0, S - c0):] = -math.inf
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
@@ -100,7 +105,7 @@ def _tile_attention(q, k, v):
         l = l * alpha + p.sum(-1)
         p_hi = p.bfloat16().float()
         p_lo = (p - p_hi).bfloat16().float()
-        vc = vf[..., c0:c0 + 64, :]
+        vc = vf[..., c0:c0 + chunk, :]
         acc = acc * alpha[..., None] + torch.matmul(p_hi, vc) + torch.matmul(p_lo, vc)
         m = m_new
     return (acc / l[..., None]).bfloat16(), m + torch.log(l)
@@ -108,6 +113,7 @@ def _tile_attention(q, k, v):
 
 @pytest.mark.parametrize("L,S,D,paired", [
     (256, 256, 64, True), (256, 256, 128, False), (37, 70, 128, True), (100, 33, 64, False),
+    (200, 300, 128, False),
 ])
 def test_tile_algorithm_keeps_the_bf16_tolerance(L, S, D, paired):
     """The bf16 kernel's tile algorithm on bf16 inputs: within one bf16 ulp at
@@ -125,7 +131,7 @@ def test_tile_algorithm_keeps_the_bf16_tolerance(L, S, D, paired):
         pallas = (pk.self_attention_pallas(jq, jk, jv),)
         queries = (tq,)
     for qq, ref in zip(queries, pallas):
-        out, lse = _tile_attention(qq, tk, tv)
+        out, lse = _tile_attention(qq, tk, tv, PAIRED_CHUNK if paired else SELF_CHUNK)
         ref = np.asarray(ref.astype(jnp.float32))
         got = out.float().numpy()
         assert np.abs(got - ref).max() <= _bf16_ulp(np.abs(ref).max())
@@ -157,7 +163,7 @@ def _tile_attention_bwd(qs, k, v, dos, split=(True, True, True)):
     kf, vf = k.float(), v.float()
     dqs, dk, dv = [], torch.zeros(k.shape), torch.zeros(v.shape)
     for q, do in zip(qs, dos):
-        o, lse = _tile_attention(q, k, v)
+        o, lse = _tile_attention(q, k, v, PAIRED_CHUNK if len(qs) == 2 else SELF_CHUNK)
         qf, dof = q.float(), do.float()
         delta = (dof * o.float()).sum(-1, keepdim=True)
         dq = torch.zeros(q.shape)
