@@ -5,12 +5,12 @@ Embedding(27 → embedding_dim-1, pad id 0 pinned to zeros) ‖ fill-bit, then
 The reference's one-hot matmul gives a zero row for an id outside the
 vocabulary; the gather here masks those ids to the same zero row.  'same'
 padding is asymmetric for even kernels (left (k-1)//2, right k//2), so k=6
-matches torch and the reference.  At f32 the convolutions run in true f32,
-forward and backward, whatever torch's TF32 settings (cuDNN's default is
-TF32; ``utils/numerics.py``).  The embedding's weight gradient is the
-product one_hot(ids)ᵀ · grad, the gradient of the reference's one-hot
-matmul: ``F.embedding``'s own backward sums on a card with atomics in an
-order that changes from run to run.
+matches torch and the reference.  The forward's f32 convolutions run in
+true f32 whatever torch's TF32 settings (cuDNN's default is TF32;
+``utils/numerics.py``); the train steps run the backward in true f32 too.
+The embedding's weight gradient is the product one_hot(ids)ᵀ · grad, the
+gradient of the reference's one-hot matmul: ``F.embedding``'s own backward
+sums on a card with atomics in an order that changes from run to run.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from torch import nn
 
 from druglamp_tpu_torch.nn import inits
 from druglamp_tpu_torch.nn.layers import TorchBatchNorm
-from druglamp_tpu_torch.utils.numerics import conv1d_true_f32, true_f32
+from druglamp_tpu_torch.utils.numerics import true_f32
 
 
 class _OneHotEmbedding(torch.autograd.Function):
@@ -40,9 +40,7 @@ class _OneHotEmbedding(torch.autograd.Function):
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
         onehot = F.one_hot(ids.reshape(-1), ctx.vocab).to(grad.dtype)
-        with true_f32():
-            dw = onehot.t() @ grad.reshape(-1, grad.shape[-1])
-        return None, dw
+        return None, onehot.t() @ grad.reshape(-1, grad.shape[-1])
 
 
 class ProteinCNN(nn.Module):
@@ -71,13 +69,13 @@ class ProteinCNN(nn.Module):
         x = torch.cat([x, fill_mask[..., None].to(x.dtype)], dim=-1)
 
         cd = self.compute_dtype or x.dtype
-        conv1d = conv1d_true_f32 if cd == torch.float32 else F.conv1d
         x = x.to(cd)
-        for i, k in enumerate(self.kernel_size):
-            conv = getattr(self, f"conv{i + 1}")
-            xt = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
-            y = F.relu(conv1d(xt, conv.weight.to(cd), conv.bias.to(cd)))
-            x = getattr(self, f"bn{i + 1}")(y.transpose(1, 2)).to(cd)
+        with true_f32():
+            for i, k in enumerate(self.kernel_size):
+                conv = getattr(self, f"conv{i + 1}")
+                xt = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
+                y = F.relu(F.conv1d(xt, conv.weight.to(cd), conv.bias.to(cd)))
+                x = getattr(self, f"bn{i + 1}")(y.transpose(1, 2)).to(cd)
         return x
 
     def init_weights(self, g: Optional[torch.Generator]) -> None:

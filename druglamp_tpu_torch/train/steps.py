@@ -20,13 +20,11 @@ says so) → train-mode forward (BatchNorm uses batch statistics and updates
 its running stats in place, as flax's ``mutable=["batch_stats"]``; dropout
 masks come from ``generator``) → the cls loss, mean over all rows → one
 ``backward()`` → an AdamW step of ``opt_cls`` at ``lr_cls``, all under
-``utils.numerics.train_numerics(deterministic)``: f32 products in true f32
-(no TF32) and, with ``deterministic=True`` (the default of
-``make_train_step`` and ``make_epoch_step_gather``), cuDNN's deterministic
-algorithms, so two runs from one seed give bit-identical parameters; the
-caller's settings are back after each step.  With the cls
-loss alone both grad modes apply the cls gradient, so both are accepted.  On
-a CUDA model the PMMA attention and the packed GCN run through their
+``utils.numerics.train_numerics()``: f32 products in true f32 (no TF32) and
+cuDNN's deterministic algorithms, so two runs from one seed give
+bit-identical parameters; the caller's settings are back after each step.
+With the cls loss alone both grad modes apply the cls gradient, so both are
+accepted.  On a CUDA model the PMMA attention and the packed GCN run through their
 hand-written kernels, forward and backward.  After the step each parameter's
 ``.grad`` holds its gradient.
 
@@ -92,8 +90,7 @@ def _on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
 
 
 def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool,
-                    grad_mode: str, n_class: int,
-                    deterministic: bool) -> Callable[..., StepOutput]:
+                    grad_mode: str, n_class: int) -> Callable[..., StepOutput]:
     """The single-step transition shared by ``make_train_step`` and
     ``make_epoch_step_gather``: ``body(state, batch, generator, lr_cls,
     lr_ssl, lr_cm, margin, cm_weight)`` on a batch of tensors on the model's
@@ -111,7 +108,7 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
         batch = decode_batch(batch, batch.pop("_store", None))
         model.train()
         model.zero_grad(set_to_none=True)
-        with train_numerics(deterministic):
+        with train_numerics():
             out = model(batch, generator=generator)
             probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
             cls_loss.backward()
@@ -125,17 +122,16 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
 
 
 def make_train_step(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool = False,
-                    grad_mode: str = "per_loss", n_class: int = 1, device="cuda",
-                    deterministic: bool = True) -> Callable[..., StepOutput]:
+                    grad_mode: str = "per_loss", n_class: int = 1,
+                    device="cuda") -> Callable[..., StepOutput]:
     """The per-step train function for one gate combination:
     ``step(state, batch, generator, lr_cls, lr_ssl=0, lr_cm=0, margin=0.5,
     cm_weight=1.0) → StepOutput``.  ``batch`` is a compact or standard
     batch (numpy arrays or tensors, moved to ``device``); ``generator``
     draws the dropout masks (a ``torch.Generator`` on ``device``, or None
-    for torch's default).  ``deterministic`` runs each step with cuDNN's
-    deterministic algorithms (set for the step only)."""
+    for torch's default)."""
     dev = resolve_device(device)
-    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class, deterministic)
+    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class)
     model.to(dev)
 
     def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator],
@@ -211,18 +207,17 @@ def _plan_batches(idx, valid, data_tree, emb_store, include_llm: bool, emb_ordin
 
 def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, include_llm: bool,
                            emb_ordinals: bool, calibrate: bool = False,
-                           grad_mode: str = "per_loss", n_class: int = 1, device="cuda",
-                           deterministic: bool = True) -> Callable[..., EpochOutput]:
+                           grad_mode: str = "per_loss", n_class: int = 1,
+                           device="cuda") -> Callable[..., EpochOutput]:
     """The epoch-chunk driver over the device-resident dataset
     (``data/device_data.py``): ``epoch(state, idx, valid, data_tree,
     emb_store, generator, lr_cls, lr_ssl=0, lr_cm=0, margin=0.5,
     cm_weight=1.0) → EpochOutput`` runs S steps, one per row of the (S, B)
     index plan ``idx`` (numpy or tensor) with its validity mask ``valid``.
     ``data_tree`` is ``DeviceDataStore.tree_for(dataset)``, ``emb_store`` a
-    ``DeviceEmbeddingStore.tree`` or None (woLLM).  ``deterministic`` as in
-    ``make_train_step``."""
+    ``DeviceEmbeddingStore.tree`` or None (woLLM)."""
     dev = resolve_device(device)
-    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class, deterministic)
+    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class)
     model.to(dev)
 
     def epoch_step(state: TrainState, idx, valid, data_tree: Dict[str, torch.Tensor],

@@ -6,26 +6,26 @@ default (``torch.backends.cudnn.allow_tf32`` is True), and a caller's
 products.  TF32 keeps 10 bits of mantissa, so an f32 forward in TF32 sits
 about 1e-3 away from the reference's true f32.  ``true_f32()`` turns both off
 for the block it wraps and gives the caller's settings back after it.  The
-models' forwards, the train steps (forward and backward) and ProteinCNN's
-convolutions (``conv1d_true_f32``, forward and backward) run under it.  bf16
-products are not affected by either setting.
+models' forwards (ProteinCNN's f32 convolutions among them) run under it, and
+so does each train step's forward, backward and optimizer step.  A backward
+that a caller runs outside the port's train steps runs under the caller's
+settings.  bf16 products are not affected by either setting.
 
 Determinism.  cuDNN picks a convolution's backward algorithm per call, and
 some of them sum with atomics in an order that changes from run to run.
-``train_numerics(deterministic)`` is what ``make_train_step`` and
-``make_epoch_step_gather`` run each step under: ``true_f32()`` and, when
-``deterministic`` (their default), ``torch.backends.cudnn.deterministic``.
-Nothing is set at import and nothing outside a step: the caller's settings
-are back when the step returns.
+``train_numerics()`` is what ``make_train_step`` and
+``make_epoch_step_gather`` run each step under: ``true_f32()`` and
+``torch.backends.cudnn.deterministic``.  Nothing is set at import and
+nothing outside a step: the caller's settings are back when the step
+returns.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+from typing import Iterator
 
 import torch
-import torch.nn.functional as F
 
 
 @contextlib.contextmanager
@@ -44,40 +44,13 @@ def true_f32() -> Iterator[None]:
 
 
 @contextlib.contextmanager
-def train_numerics(deterministic: bool) -> Iterator[None]:
-    """One train step's settings: ``true_f32()``, and cuDNN's deterministic
-    algorithms when ``deterministic``; restored on exit."""
+def train_numerics() -> Iterator[None]:
+    """One train step's settings: ``true_f32()`` and cuDNN's deterministic
+    algorithms; restored on exit."""
     saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = deterministic or saved
+    torch.backends.cudnn.deterministic = True
     try:
         with true_f32():
             yield
     finally:
         torch.backends.cudnn.deterministic = saved
-
-
-class _Conv1dTrueF32(torch.autograd.Function):
-    """``F.conv1d`` (stride 1, no padding) whose forward and backward both
-    run under ``true_f32()``: autograd's own backward would read the TF32
-    setting of whatever code calls ``backward()``."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias):
-        ctx.save_for_backward(x, weight)
-        with true_f32():
-            return F.conv1d(x, weight, bias)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, weight = ctx.saved_tensors
-        with true_f32():
-            dx, dw, db = torch.ops.aten.convolution_backward(
-                dy, x, weight, [weight.shape[0]], [1], [0], [1], False, [0], 1,
-                list(ctx.needs_input_grad))
-        return dx, dw, db
-
-
-def conv1d_true_f32(x: torch.Tensor, weight: torch.Tensor,
-                    bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """``F.conv1d(x, weight, bias)`` in true f32, forward and backward."""
-    return _Conv1dTrueF32.apply(x, weight, bias)

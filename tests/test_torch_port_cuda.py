@@ -427,18 +427,28 @@ def test_f32_forwards_ignore_the_tf32_settings(cuda, matmul):
         assert (a - b).abs().max().item() <= 2e-5
 
 
-def test_two_f32_steps_are_bit_identical(cuda):
+@pytest.mark.parametrize("tf32_second", [False, True], ids=["tf32_off", "tf32_second"])
+def test_two_f32_steps_are_bit_identical(cuda, tf32_second):
     """Two f32 train steps of DrugLAMP from one seed (dropout 0.1 from one
     generator seed, lr 1e-4): bit-identical parameters and gradients, leaf by
-    leaf (make_train_step's default deterministic=True)."""
+    leaf.  The steps run under cuDNN's deterministic algorithms and in true
+    f32, forward and backward, whatever the caller's TF32 settings: the
+    second step may run under torch's default cuDNN TF32 and a caller's
+    matmul precision "high"."""
     from druglamp_tpu_torch.train.steps import make_train_step
 
     runs = []
-    for _ in range(2):
+    for tf32 in (False, tf32_second):
         _, model, state, batch = _f32_trainer(cuda)
         step = make_train_step(model, False, False)
-        step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4)
-        torch.cuda.synchronize()
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.set_float32_matmul_precision("high" if tf32 else "highest")
+        try:
+            step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
         runs.append({n: (p.detach().clone(), p.grad.clone()) for n, p in model.named_parameters()})
     assert runs[0].keys() == runs[1].keys()
     for n, (p, g) in runs[0].items():
