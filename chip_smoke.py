@@ -95,6 +95,30 @@ printing its own lines; any failure exits non-zero and prints no result:
    call and those of an empty profiled block (the profiler's own); a
    positive control, one step whose batch gather waits for the card, must
    show its waits inside the loop.
+10. full gate — DrugLAMP2C2P at ``Config()`` (bf16, seeded weights,
+   ``DRUGLAMP_PACKED_GCN=1``): 10 steps of ``make_train_step(use_ssl=True,
+   use_cm=True, calibrate=True)`` on a batch of 16 whose CM ground truth has
+   positives, negatives and fallback rows, asserting 4/2 attention forward,
+   4/2 backward (the cls loss only reaches PMMA), 3 GCN forward and 9 GCN
+   backward launches a step (one per loss), finite losses, the CM weight a
+   power of 10 times its start, and a non-zero gradient from its loss on
+   every ``ssl_model`` and ``cm_model`` leaf.  Then in f32 with dropout 0,
+   the step's forward and per-loss gradients through the kernels and
+   through the plain attention and GCN: losses within 1e-5, each loss's
+   gradients within rtol 5e-3 / atol 5e-5; two f32 full-gate steps from one
+   seed (the second under TF32 settings) bit-identical; the bf16 step's
+   CUDA-event time, host issue time, kernel time, launches and peak memory
+   (table in ``chiprun_out/full_gate_profile.txt``).
+11. fit     — ``Trainer.fit`` on phase 9's dataset (and its 128 test pairs),
+   the DrugLAMP2C2P recipe with ssl and cm on, init_epoch 2, epoch_step 2,
+   the packed GCN, 3 epochs (cls; ssl + cm + calibrate; cm) with the
+   validation pass after each, then the test pass on the best state; the
+   launches of every epoch and pass; each epoch's time (CUDA events),
+   pairs/s, host issue time and peak memory; the same fit profiled: no host
+   wait and no host read inside any epoch's loop (the calibrating one
+   included), each epoch's kernel time; a Trainer whose model starts from
+   other weights restores the epoch-2 ``ckpt_last.pt`` and trains epoch 3:
+   its checkpoint equals the unbroken run's, leaf by leaf.
 
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
@@ -124,6 +148,7 @@ PROFILE_SETTLE_S = 0.05     # host wait at the end of a profiled block (``profil
 LEAD_IN_CYCLES = 40_000_000  # its lead-in spin kernel: 20 ms at 1.98 GHz
 MARKER_CYCLES = 2_000_000   # ``device_ms``'s marker spin kernel: 1 ms
 PROFILE_RETRIES = []        # windows that ``device_ms`` profiled again
+START = time.perf_counter()
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -181,7 +206,7 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def time_ms(torch, fn, iters: int = 20, reps: int = 7, warmup: int = 3) -> float:
@@ -1052,21 +1077,23 @@ def gcn_checks(torch, gcn):
 
 
 EPOCH_PAIRS, VAL_PAIRS, N_PROTEINS, EVAL_B = 512, 128, 64, 64
+FIT_EPOCHS = 3
 F32_LR = 1e-5
 
 
 def write_dataset(root: str):
     """A CSV dataset in the repo's layout (``<root>/synthetic/random/{train,
-    val}.csv``): the real drugs of EPOCH_SMILES, N_PROTEINS proteins of
-    50–1022 residues, EPOCH_PAIRS training and VAL_PAIRS validation pairs,
-    all drawn from SEED."""
+    val,test}.csv``): the real drugs of EPOCH_SMILES, N_PROTEINS proteins of
+    50–1022 residues, EPOCH_PAIRS training, VAL_PAIRS validation and
+    VAL_PAIRS test pairs, all drawn from SEED."""
     import numpy as np
 
     rng = np.random.RandomState(SEED + 5)
     prots = make_proteins(rng, N_PROTEINS)
     split = os.path.join(root, "synthetic", "random")
     os.makedirs(split)
-    for name, n in (("train.csv", EPOCH_PAIRS), ("val.csv", VAL_PAIRS)):
+    for name, n in (("train.csv", EPOCH_PAIRS), ("val.csv", VAL_PAIRS),
+                    ("test.csv", VAL_PAIRS)):
         d = rng.randint(0, len(EPOCH_SMILES), size=n)
         p = rng.randint(0, N_PROTEINS, size=n)
         y = rng.randint(0, 2, size=n)
@@ -1091,6 +1118,7 @@ def build_epoch_data(cfg, root: str):
               seq_len=cfg.protein.seq_len)
     train = DTIDataset(root, "synthetic", "random", "train.csv", **kw)
     val = DTIDataset(root, "synthetic", "random", "val.csv", table=train.table, **kw)
+    test = DTIDataset(root, "synthetic", "random", "test.csv", table=train.table, **kw)
     table = train.table
     cache = EmbeddingCache(os.path.join(root, "embeddings"), "synthetic")
     rng = np.random.RandomState(SEED + 6)
@@ -1105,12 +1133,13 @@ def build_epoch_data(cfg, root: str):
     data = DeviceDataStore.build(table, cfg.drug.max_nodes, cfg.protein.seq_len, True, True,
                                  device=DEVICE)
     emb_bytes = sum(t.numel() * t.element_size() for t in emb.tree.values())
-    print(f"  dataset: {table.n_drug} drugs, {table.n_prot} proteins, {len(train)} training "
-          f"and {len(val)} validation pairs; DeviceDataStore {data.nbytes()} bytes, "
+    print(f"  dataset: {table.n_drug} drugs, {table.n_prot} proteins, {len(train)} training, "
+          f"{len(val)} validation and {len(test)} test pairs; DeviceDataStore {data.nbytes()} "
+          f"bytes, "
           f"DeviceEmbeddingStore {emb_bytes} bytes (drug_emb "
           f"{tuple(emb.tree['drug_emb'].shape)}, prot_emb {tuple(emb.tree['prot_emb'].shape)})",
           flush=True)
-    return train, val, data, emb.tree
+    return train, val, test, data, emb.tree
 
 
 @contextlib.contextmanager
@@ -1319,7 +1348,8 @@ def wait_control(torch, epoch, state, plan, emb, gen):
     """The positive control of the in-loop count: a one-step epoch whose
     batch gather also copies the plan from pageable memory (what the epoch
     did before it staged the plan in pinned memory) and synchronises, inside
-    ``epoch_step.loop``.  Returns the count ``waits_inside`` reads there."""
+    ``epoch_step.loop``.  Returns the count ``waits_inside`` reads there,
+    after holding ``loop_counts`` (phase 11's count) to it."""
     import numpy as np
 
     from druglamp_tpu_torch.train import steps
@@ -1338,7 +1368,11 @@ def wait_control(torch, epoch, state, plan, emb, gen):
             epoch(state, idx[:1], ones[:1], tree, emb, gen, TRAIN_LR)
     finally:
         steps.gather_compact_batch = gather
-    return waits_inside(torch, prof.events(), "epoch_step.loop")
+    counts = waits_inside(torch, prof.events(), "epoch_step.loop")
+    raw = loop_counts(torch, prof, "epoch_step.loop", HOST_WAITS)   # phase 11's reading
+    if not raw or raw[0][0] != counts:
+        fail(f"the raw-record count of the control ({raw}) differs from the event tree's {counts}")
+    return counts
 
 
 def epoch_timing(torch, state, epoch, plan, emb):
@@ -1412,6 +1446,422 @@ def epoch_timing(torch, state, epoch, plan, emb):
     if not control or not control["cudaDeviceSynchronize"] or not (
             control["cudaStreamSynchronize"] or control["cudaMemcpy"]):
         fail(f"the in-loop count misses waits placed inside epoch_step's loop: {control}")
+
+
+# --- phases 10 and 11: the full DrugLAMP2C2P recipe ------------------------------------
+
+SSL_LR, CM_LR, MARGIN = 3e-5, 3e-5, 0.5        # the DrugLAMP2C2P recipe's
+# kernel launches of one full-gate step (DrugLAMP2C2P, packed GCN): the
+# attention backwards for the cls loss only, the GCN backward once for each
+# of the three losses (each reaches the GCN tokens)
+FULL_GATE_PER_STEP = {"paired_attention_fwd": 4, "self_attention_fwd": 2,
+                      "paired_attention_bwd": 4, "self_attention_bwd": 2,
+                      "gcn_packed_matmul": 3, "gcn_packed_matmul_bwd": 9}
+
+
+def full_gate_batch(torch, cfg):
+    """One compact batch of TRAIN_B from make_batch, with CM ground truth from
+    5 proteins and 7 drugs: proteins 0–3 have positives and negatives,
+    protein 4 negatives only (the triplet loss's fallback rows)."""
+    import numpy as np
+
+    from druglamp_tpu_torch.data.encoding import compact_batch
+    from druglamp_tpu_torch.data.loader import build_cm_arrays
+    from druglamp_tpu_torch.utils.synthetic import make_batch
+
+    host = make_batch(cfg, TRAIN_B, seed=SEED, n_drug_feature=384, n_prot_feature=640)
+    batch = compact_batch(host, (host["d_fill"] == 0).sum(1))
+    t = np.arange(TRAIN_B)
+    pid, did = t % 5, t % 7
+    batch["labels"] = ((t % 3 == 0) & (pid != 4)).astype(np.float32)
+    cm = build_cm_arrays(pid, did, batch["labels"])
+    out = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    out["cm"] = {k: torch.from_numpy(v).to(DEVICE) for k, v in cm.items()}
+    return out
+
+
+def make_full_gate(torch, cfg):
+    """(model, state, step) for DrugLAMP2C2P at ``cfg``, weights drawn from
+    SEED, the full-gate step (ssl, cm, calibrate)."""
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+
+    model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(model, True, True, calibrate=True, device=DEVICE)
+    return model, TrainState.create(model, True, True), step
+
+
+def full_gate_gradients(torch, model, batch, seed):
+    """The per-loss gradients of one full-gate step's forward (the step's own
+    first half, ``steps.loss_gradients``) under the step's numerics."""
+    from druglamp_tpu_torch.data.encoding import decode_batch
+    from druglamp_tpu_torch.train import steps
+
+    model.train()
+    with steps.train_numerics():
+        decoded = decode_batch(dict(batch))
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        return steps.loss_gradients(model, decoded, gen, True, True, True, MARGIN,
+                                    torch.ones((), device=DEVICE))
+
+
+def full_gate_checks(torch, attention, gcn):
+    """Phase 10: TRAIN_STEPS full-gate steps at full width (bf16, packed GCN)
+    → launch counts of the main path."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    cfg = Config()
+    model, state, step = make_full_gate(torch, cfg)
+    batch = full_gate_batch(torch, cfg)
+    gt = batch["cm"]["gt"]
+    n_pos = int((gt == 1).any(1).sum().item())
+    n_fb = int(((gt == 0).any(1) & ~(gt == 1).any(1)).sum().item())
+    print(f"  DrugLAMP2C2P at Config(), {cfg.solver.compute_dtype}, DRUGLAMP_PACKED_GCN=1, "
+          f"{sum(p.numel() for p in model.parameters())} parameters; batch of {TRAIN_B}, CM "
+          f"ground truth: {n_pos} proteins with positives, {n_fb} fallback (negatives only); "
+          f"{TRAIN_STEPS} steps of make_train_step(use_ssl, use_cm, calibrate) at lr "
+          f"{TRAIN_LR}/{SSL_LR}/{CM_LR}, margin {MARGIN}", flush=True)
+    if not n_pos or not n_fb:
+        fail("the full-gate batch lacks positives or a fallback row")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    w0 = 1e-3          # the calibration's second loop moves it to the losses' scale
+    w = w0
+    reset_counts(attention, gcn)
+    outs = []
+    for _ in range(TRAIN_STEPS):
+        outs.append(step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w))
+        w = outs[-1].cm_weight
+    torch.cuda.synchronize()
+    launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    print(f"  main path: {TRAIN_STEPS} full-gate steps, launches {launches}", flush=True)
+    if launches != {k: TRAIN_STEPS * v for k, v in FULL_GATE_PER_STEP.items()}:
+        fail(f"full-gate launches {launches}, expected {FULL_GATE_PER_STEP} per step")
+    losses = {k: [float(getattr(o, k)) for o in outs] for k in ("cls_loss", "ssl_loss", "cm_loss")}
+    for k, v in losses.items():
+        print(f"  {k}: {['%.6f' % x for x in v]}", flush=True)
+        if not all(math.isfinite(x) for x in v):
+            fail(f"non-finite {k}")
+    ratio = float(w) / w0
+    k10 = round(math.log10(ratio))
+    print(f"  cm_weight {float(w)!r} = {ratio / 10.0 ** k10:.7f}·10^{k10} times its start",
+          flush=True)
+    if abs(ratio / 10.0 ** k10 - 1) > 1e-6:
+        fail(f"cm_weight {float(w)} is not a power of 10 times {w0}")
+
+    *_, grads = full_gate_gradients(torch, model, batch, SEED + 1)
+    names = [n for n, _ in model.named_parameters()]
+    reach = {"ssl": "ssl_model.", "cm": "cm_model."}
+    zero = []
+    for loss, prefix in reach.items():
+        leaves = [(n, g) for n, g in zip(names, grads[loss]) if n.startswith(prefix)]
+        zero += [n for n, g in leaves if g.abs().max().item() == 0 or not torch.isfinite(g).all()]
+        print(f"  {loss} gradient: {len(leaves)} {prefix[:-1]} leaves, "
+              f"{sum(1 for n, g in leaves if g.abs().max().item() > 0)} non-zero", flush=True)
+    if zero:
+        fail(f"head leaves without a finite non-zero gradient from their loss: {zero[:5]}")
+
+    cfg32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                compute_dtype="float32"))
+    full_gate_f32_agreement(torch, attention, gcn, dataclasses.replace(cfg32, pmma_dropout=0.0))
+    full_gate_f32_determinism(torch, cfg32)
+    full_gate_timing(torch, model, state, step, batch, w)
+    del model, state, step
+    return launches
+
+
+def full_gate_f32_agreement(torch, attention, gcn, cfg32):
+    """The full-gate step's forward and per-loss gradients in f32, dropout 0,
+    the same MLM draws, through the kernels and through the plain versions
+    (attention and GCN): each loss within 1e-5, each loss's gradient within
+    rtol 5e-3 / atol 5e-5, leaf by leaf."""
+    runs = []
+    batch = full_gate_batch(torch, cfg32)
+    for plain in (False, True):
+        from druglamp_tpu_torch.models.registry import build_model
+
+        model = build_model("DrugLAMP2C2P", cfg32, generator=torch.Generator().manual_seed(SEED))
+        model.to(DEVICE)
+        reset_counts(attention, gcn)
+        with (plain_attention(attention) if plain else contextlib.nullcontext()), \
+                (plain_gcn(gcn) if plain else contextlib.nullcontext()):
+            cls, ssl, cm, _, w, grads = full_gate_gradients(torch, model, batch, SEED)
+        torch.cuda.synchronize()
+        bwd = (attention.LAUNCHES["paired_attention_bwd"]
+               + attention.LAUNCHES["self_attention_bwd"], gcn.LAUNCHES["gcn_packed_matmul_bwd"])
+        if (bwd == (0, 0)) != plain or (not plain and bwd != (6, 9)):
+            fail(f"f32 full gate ({'plain' if plain else 'kernels'}): backward launches {bwd}")
+        runs.append(([float(cls), float(ssl), float(cm)], float(w), grads))
+        del model
+    (lk, wk, gk), (lp, wp, gp) = runs
+    worst, bad = 0.0, []
+    for loss in ("cls", "ssl", "cm"):
+        for i, (a, b) in enumerate(zip(gk[loss], gp[loss])):
+            worst = max(worst, (a - b).abs().max().item())
+            if not torch.allclose(a, b, rtol=5e-3, atol=5e-5):
+                bad.append((loss, i))
+    dloss = max(abs(a - b) for a, b in zip(lk, lp))
+    print(f"  f32 full gate, dropout 0, kernels vs plain attention and GCN: losses "
+          f"{['%.7f' % x for x in lk]} vs {['%.7f' % x for x in lp]}, max |Δ| {dloss:.3e} "
+          f"(tol 1e-5); cm_weight {wk!r} vs {wp!r}; 3 × {len(gk['cls'])} gradient leaves, max "
+          f"|Δg| {worst:.3e} (rtol 5e-3, atol 5e-5), {len(bad)} outside", flush=True)
+    if bad or dloss > 1e-5 or wk != wp:
+        fail(f"the f32 full-gate step disagrees with its plain run: {bad[:5]}, "
+             f"|Δloss| {dloss:.3e}")
+
+
+def full_gate_f32_determinism(torch, cfg32):
+    """Two f32 full-gate steps from one seed (dropout as configured, the same
+    generator seed for dropout and the MLM draws), the second under cuDNN
+    TF32 and matmul precision "high": parameters, BatchNorm buffers, the
+    gradients left in .grad and the three losses bit-identical."""
+    runs = []
+    for tf32 in (False, True):
+        model, state, step = make_full_gate(torch, cfg32)
+        batch = full_gate_batch(torch, cfg32)
+        with tf32_flags(torch, tf32, "high" if tf32 else "highest"):
+            out = step(state, batch, torch.Generator(device=DEVICE).manual_seed(SEED), TRAIN_LR,
+                       SSL_LR, CM_LR, MARGIN, 1.0)
+        torch.cuda.synchronize()
+        runs.append(({k: v.detach().clone() for k, v in model.state_dict().items()},
+                     {n: p.grad.clone() for n, p in model.named_parameters()},
+                     [float(out.cls_loss), float(out.ssl_loss), float(out.cm_loss)]))
+        del model, state, step
+    (s1, g1, l1), (s2, g2, l2) = runs
+    differ = [k for k in s1 if not torch.equal(s1[k], s2[k])]
+    differ += [f"grad:{n}" for n in g1 if not torch.equal(g1[n], g2[n])]
+    print(f"  f32 full-gate step twice from seed {SEED} (the second under cudnn.allow_tf32, "
+          f"precision high): {len(s1)} state leaves and {len(g1)} gradients, {len(differ)} "
+          f"differ; losses {l1} / {l2}", flush=True)
+    if differ or l1 != l2:
+        fail(f"two f32 full-gate steps from one seed differ: {differ[:5]}")
+
+
+def full_gate_timing(torch, model, state, step, batch, w):
+    """The bf16 full-gate step (calibration included): CUDA-event time, host
+    issue time, kernel time and launches of one profiled step, peak memory."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    run = lambda: step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w)   # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, run, iters=TRAIN_STEPS, reps=3, warmup=2)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        run()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    torch.cuda.synchronize()
+    with profiling(torch, cpu=True) as prof:
+        run()
+    averages = prof.key_averages()
+    kernels = device_kernels(torch, averages)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_kernels = sum(e.count for e in kernels)
+    n_ops = sum(e.count for e in averages
+                if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::"))
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "full_gate_profile.txt"), "w") as f:
+        f.write(averages.table(sort_by="self_device_time_total", row_limit=40))
+        f.write("\n\nThe same step by self CPU time (host work):\n")
+        f.write(averages.table(sort_by="self_cpu_time_total", row_limit=40))
+    print(f"  full-gate step (bf16, batch {TRAIN_B}, calibration included, CUDA events, median of "
+          f"3 x {TRAIN_STEPS}): {step_ms:.2f} ms, {TRAIN_B / step_ms * 1e3:.1f} pairs/s; host "
+          f"time to issue a step {issue_ms:.2f} ms; kernel time {busy_ms:.2f} ms "
+          f"({busy_ms / step_ms:.1%} busy); {n_kernels} kernel launches and {n_ops} aten op "
+          f"calls a step; peak device memory {peak_gib:.2f} GiB", flush=True)
+
+
+def loop_counts(torch, prof, span: str, names):
+    """For each host range ``span`` of a profiled run, in order: the count of
+    each of ``names`` among the host calls inside it, and the kernel time
+    (ms) of the kernels that start inside it or within 20 ms after it.  Read
+    from the profiler's raw records: building its event tree for a whole fit
+    (some two million records) takes minutes."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    raw = prof.profiler.kineto_results.events()
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in raw
+                    if e.name() == span and e.device_type() == cpu)
+    out = [(dict.fromkeys(names, 0), 0.0) for _ in ranges]
+    for e in raw:
+        name, start = e.name(), e.start_ns()
+        if e.device_type() == cpu and name in names:
+            for i, (a, b) in enumerate(ranges):
+                if a <= start and e.end_ns() <= b:
+                    out[i][0][name] += 1
+        elif e.device_type() == cuda and not e.is_user_annotation() and "spin_kernel" not in name:
+            for i, (a, b) in enumerate(ranges):
+                if a <= start <= b + 20_000_000:
+                    out[i] = (out[i][0], out[i][1] + e.duration_ns() / 1e6)
+    return out
+
+
+def fit_checks(torch, attention, gcn, train, val, test, data, emb):
+    """Phase 11: ``Trainer.fit`` → launch counts of the main path."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.loader import BatchLoader
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.trainer import Trainer
+    from druglamp_tpu_torch.utils.logging import ExperimentLogger
+
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    base = Config()
+    cfg = dataclasses.replace(
+        base, rs=dataclasses.replace(base.rs, ssl=True, cm=True, init_epoch=2, epoch_step=2),
+        solver=dataclasses.replace(base.solver, max_epoch=FIT_EPOCHS, ckpt_every=1,
+                                   cm_lr=CM_LR, eval_batch_size=EVAL_B))
+    loaders = (BatchLoader(train, TRAIN_B, shuffle=True, drop_last=True, seed=SEED,
+                           emb_ordinals=True),
+               BatchLoader(val, EVAL_B, shuffle=False, drop_last=False, emb_ordinals=True),
+               BatchLoader(test, EVAL_B, shuffle=False, drop_last=False, emb_ordinals=True))
+    S = len(loaders[0])
+    print(f"  DrugLAMP2C2P at Config(), bf16, DRUGLAMP_PACKED_GCN=1; Trainer.fit over "
+          f"{FIT_EPOCHS} epochs of {S} steps (ssl and cm on, init_epoch 2, epoch_step 2: cls, "
+          f"then ssl+cm+calibrate, then cm), validation after each, then the test pass on the "
+          f"best state", flush=True)
+
+    def trainer(work, seed, logger=None, ckpt_every=1):
+        c = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, ckpt_every=ckpt_every))
+        model = build_model("DrugLAMP2C2P", c, generator=torch.Generator().manual_seed(seed))
+        t = Trainer(model, c, *loaders, logger=logger, work_dir=work, embed_store=emb,
+                    device_data=data, device=DEVICE)
+        # the recipe's early-stopping patience (max_epoch // 4 of its 100
+        # epochs): a 3-epoch cut would stop after one epoch without a gain
+        t.patience = base.solver.max_epoch // 4
+        return t, TrainState.create(model, True, True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the unbroken fit, each epoch timed; its epoch-2 ckpt_last kept
+        log = ExperimentLogger(tmp, "fit", quiet=True)
+        t, state = trainer(os.path.join(tmp, "unbroken"), SEED, log)
+        timings, epoch2 = [], os.path.join(tmp, "ckpt_epoch2.pt")
+        build_fn, save = t._epoch_fn, t._save
+
+        def timed_epoch_fn(*key):
+            fn = build_fn(*key)
+
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                issue = time.perf_counter() - t0
+                end.record()
+                end.synchronize()
+                timings.append((start.elapsed_time(end), issue * 1e3,
+                                torch.cuda.max_memory_allocated() / 2 ** 30))
+                return out
+            return run
+
+        def save_keeping_epoch2(path, snapshot):
+            save(path, snapshot)
+            if path.endswith("ckpt_last.pt") and t.epoch == 2:
+                shutil.copy(path, epoch2)
+
+        t._epoch_fn, t._save = timed_epoch_fn, save_keeping_epoch2
+        t_fit = time.perf_counter()
+        reset_counts(attention, gcn)
+        test_metrics = t.run_experiment(SEED, state=state)
+        torch.cuda.synchronize()
+        launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+        with open(log.jsonl_path) as f:
+            records = [json.loads(line) for line in f]
+        epochs = [r for r in records if "train_loss" in r]
+        print(f"  main path, fit and test: launches {launches}", flush=True)
+        gates = [("ssl_loss" in r, "cm_loss" in r) for r in epochs]
+        if gates != [(False, False), (True, True), (False, True)][:FIT_EPOCHS]:
+            fail(f"the epochs' gates {gates}, expected cls, ssl+cm, cm")
+        per_step = {"paired_attention_fwd": 4, "self_attention_fwd": 2,
+                    "paired_attention_bwd": 4, "self_attention_bwd": 2, "gcn_packed_matmul": 3}
+        n_eval = -(-len(val) // EVAL_B) * FIT_EPOCHS + -(-len(test) // EVAL_B)
+        want = {k: S * FIT_EPOCHS * v for k, v in per_step.items()}
+        want["paired_attention_fwd"] += 4 * n_eval
+        want["self_attention_fwd"] += 2 * n_eval
+        want["gcn_packed_matmul"] += 3 * n_eval
+        want["gcn_packed_matmul_bwd"] = S * (3 + 9 + 6)       # cls; cls+ssl+cm; cls+cm
+        if launches != want:
+            fail(f"fit launches {launches}, expected {want}")
+        for r, (ms, issue, peak) in zip(epochs, timings):
+            print(f"  epoch {r['epoch']}: cls {r['train_loss']:.5f}"
+                  + (f", ssl {r['ssl_loss']:.5f}" if "ssl_loss" in r else "")
+                  + (f", cm {r['cm_loss']:.5f} (weight {r['cm_weight']!r}, margin "
+                     f"{r['margin']:.5f})" if "cm_loss" in r else "")
+                  + f"; val AUROC {r['val_auroc']:.4f}, AUSum {r['val_ausum']:.4f}; epoch call "
+                  f"{ms:.1f} ms (CUDA events), {S * TRAIN_B / ms * 1e3:.1f} pairs/s, host time "
+                  f"to issue it {issue:.1f} ms, peak device memory {peak:.2f} GiB; epoch with "
+                  f"its loss sums {r['epoch_time_s'] * 1e3:.1f} ms", flush=True)
+            if not all(math.isfinite(r[k]) for k in ("train_loss", "ssl_loss", "cm_loss")
+                       if k in r):
+                fail(f"non-finite losses in epoch {r['epoch']}")
+        ratio = t.cm_weight / 1.0
+        if abs(ratio / 10.0 ** round(math.log10(ratio)) - 1) > 1e-6:
+            fail(f"cm_weight {t.cm_weight} is not a power of 10")
+        print(f"  test on the best state (epoch {t.best_epoch}): AUROC "
+              f"{test_metrics['auroc']:.4f}, AUPRC {test_metrics['auprc']:.4f}, loss "
+              f"{test_metrics['loss']:.5f}", flush=True)
+        if not all(math.isfinite(test_metrics[k]) for k in ("auroc", "auprc", "loss")):
+            fail(f"test metrics not finite: {test_metrics}")
+        final = torch.load(os.path.join(tmp, "unbroken", "ckpt_last.pt"), map_location=DEVICE,
+                           weights_only=True)
+
+        print(f"  (the timed fit and test took {time.perf_counter() - t_fit:.1f} s)", flush=True)
+
+        # the same fit profiled (checkpoints only when it stops): host waits
+        # and reads inside each epoch's loop
+        t_prof = time.perf_counter()
+        tp, state = trainer(os.path.join(tmp, "profiled"), SEED, ckpt_every=FIT_EPOCHS)
+        with profiling(torch, cpu=True) as prof:
+            tp.fit(state, SEED)
+        names = HOST_WAITS + ("aten::item", "aten::_local_scalar_dense")
+        loops = loop_counts(torch, prof, "epoch_step.loop", names)
+        print(f"  (the profiled fit and its count took {time.perf_counter() - t_prof:.1f} s)",
+              flush=True)
+        if len(loops) != FIT_EPOCHS:
+            fail(f"the profiled fit shows {len(loops)} epoch_step.loop ranges")
+        for i, ((counts, busy), (ms, _, _)) in enumerate(zip(loops, timings)):
+            print(f"  epoch {i + 1} profiled: inside its loop host waits "
+                  f"{ {k: counts[k] for k in HOST_WAITS} }, host reads "
+                  f"{counts['aten::item'] + counts['aten::_local_scalar_dense']}; kernel time "
+                  f"{busy:.1f} ms, {busy / ms:.1%} of the unprofiled epoch call", flush=True)
+            if any(counts.values()):
+                fail(f"epoch {i + 1} waits for or reads from the device inside its loop: {counts}")
+
+        # a resume from the epoch-2 ckpt_last, in a Trainer whose model starts elsewhere
+        resume_dir = os.path.join(tmp, "resumed")
+        os.makedirs(resume_dir)
+        shutil.copy(epoch2, os.path.join(resume_dir, "ckpt_last.pt"))
+        tr, state = trainer(resume_dir, SEED + 1)
+        tr.restore(os.path.join(resume_dir, "ckpt_last.pt"), state)
+        tr.fit(state, SEED, start_epoch=tr.epoch + 1)
+        resumed = torch.load(os.path.join(resume_dir, "ckpt_last.pt"), map_location=DEVICE,
+                             weights_only=True)
+        differ = [k for k in final["model"] if not torch.equal(final["model"][k],
+                                                               resumed["model"][k])]
+        for opt in ("opt_cls", "opt_ssl", "opt_cm"):
+            a, b = final["optim"][opt]["state"], resumed["optim"][opt]["state"]
+            differ += [f"{opt}:{i}:{k}" for i in a for k in a[i]
+                       if not torch.equal(torch.as_tensor(a[i][k]), torch.as_tensor(b[i][k]))]
+        same_host = final["host"] == resumed["host"]
+        print(f"  resume from the epoch-2 ckpt_last: epoch 3 against the unbroken run's, "
+              f"{len(final['model'])} model leaves and the three AdamW states, {len(differ)} "
+              f"differ; host state equal {same_host}", flush=True)
+        if differ or not same_host:
+            fail(f"the resumed epoch 3 differs from the unbroken one: {differ[:5]}")
+    del t, tp, tr
+    return launches
 
 
 @contextlib.contextmanager
@@ -1659,11 +2109,24 @@ def main() -> None:
 
     cfg = Config()
     with tempfile.TemporaryDirectory() as root:
-        train, val, data, emb = build_epoch_data(cfg, root)
+        train, val, test, data, emb = build_epoch_data(cfg, root)
     state, epoch, plan, epoch_launches = epoch_checks(torch, attention, gcn, cfg, train, val,
                                                       data, emb)
     records.append(gcn_record(torch, gcn, plan[2], epoch_launches, gcn_err))
     epoch_timing(torch, state, epoch, plan, emb)
+    del state, epoch, plan
+
+    phase("10 full-gate training step (DrugLAMP2C2P)")
+    print(f"  card: {smi}", flush=True)
+    gate_launches = full_gate_checks(torch, attention, gcn)
+
+    phase("11 Trainer.fit (the DrugLAMP2C2P recipe)")
+    print(f"  card: {smi}", flush=True)
+    fit_launches = fit_checks(torch, attention, gcn, train, val, test, data, emb)
+    for rec in records:        # the launches of the main path, phases 10 and 11 included
+        keys = ([rec["name"]] if rec["name"] != "gcn_packed_matmul"
+                else ["gcn_packed_matmul", "gcn_packed_matmul_bwd"])
+        rec["launches"] += sum(gate_launches[k] + fit_launches[k] for k in keys)
     print(f"  device_ms: {len(PROFILE_RETRIES)} timing windows profiled again", flush=True)
 
     print(json.dumps({"kernels": records}))

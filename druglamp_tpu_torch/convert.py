@@ -10,28 +10,26 @@ arrays.  A leaf's flax path, joined with ``/`` (e.g.
   (k, in, out) → ``weight`` (out, in, k);
 - LayerNorm / BatchNorm ``scale`` → ``weight``; BatchNorm ``{mean, var}`` from
   batch_stats → ``running_mean`` / ``running_var``; the ``BatchNorm_0`` level
-  of the flax path is dropped;
+  of the flax path is dropped (the cross-modality head's ``MaskedBatchNorm``
+  has none; SimSiam's affine-free ``bn3`` has stats and no parameters);
 - GCN ``graph_kernel`` / ``graph_bias`` → ``graph.weight`` (transposed) /
   ``graph.bias``; ``init_transform`` → ``init_transform.weight`` (transposed);
   ``embedding`` → ``embedding.weight``; GCA ``in_proj_weight`` (E, 3E) →
   torch MultiheadAttention's (3E, E).
 
-The SSL and CM heads are not ported yet: their subtrees are skipped and
-listed.  Any other key the model lacks, or any model key left unfilled,
-raises.
+Every leaf of the trees is mapped, the SSL and CM heads' included: a flax
+leaf the model lacks, or a model key left unfilled, raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from druglamp_tpu_torch.nn.layers import TorchBatchNorm
-
-SKIPPED_SUBTREES = ("ssl_model", "cm_model")
+from druglamp_tpu_torch.nn.layers import MaskedBatchNorm, TorchBatchNorm
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -70,18 +68,14 @@ def _map_leaf(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def from_jax_params(params: Mapping, batch_stats: Mapping, model: nn.Module
-                    ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """→ (state_dict for ``model``, skipped flax paths).  Raises ``KeyError``
-    on a flax leaf the model has no key for, or a model key left unfilled,
-    and ``ValueError`` on a shape mismatch."""
+                    ) -> Dict[str, torch.Tensor]:
+    """→ the state_dict for ``model``.  Raises ``KeyError`` on a flax leaf the
+    model has no key for, or a model key left unfilled, and ``ValueError`` on
+    a shape mismatch."""
     expected = model.state_dict()
     state: Dict[str, torch.Tensor] = {}
-    skipped: List[str] = []
     leaves = {**_flatten(params), **_flatten(batch_stats)}
     for path, value in leaves.items():
-        if path.split("/")[0] in SKIPPED_SUBTREES:
-            skipped.append(path)
-            continue
         key, value = _map_leaf(path, value)
         if key not in expected:
             raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
@@ -93,16 +87,18 @@ def from_jax_params(params: Mapping, batch_stats: Mapping, model: nn.Module
     missing = sorted(set(expected) - set(state))
     if missing:
         raise KeyError(f"model keys missing from the flax trees: {missing}")
-    return state, skipped
+    return state
 
 
 def to_jax_paths(tensors: Mapping[str, torch.Tensor], model: nn.Module) -> Dict[str, np.ndarray]:
     """The inverse of ``from_jax_params``'s leaf map: a dict keyed like
     ``model.state_dict()`` (the state dict itself, or the parameters'
     ``.grad``s) → {flax path joined with ``/``: f32 numpy array in flax
-    layout}.  A BatchNorm's leaves regain their ``BatchNorm_0`` level; the
-    model tells its weight and bias from a LayerNorm's or a Dense's."""
+    layout}.  A BatchNorm's leaves regain their ``BatchNorm_0`` level (a
+    MaskedBatchNorm's have none); the model tells its weight and bias from a
+    LayerNorm's or a Dense's."""
     norms = {name for name, m in model.named_modules() if isinstance(m, TorchBatchNorm)}
+    masked = {name for name, m in model.named_modules() if isinstance(m, MaskedBatchNorm)}
     norm_leaves = {"weight": "scale", "running_mean": "mean", "running_var": "var"}
     dotted = {tail: (leaf, t) for leaf, (tail, t) in _LEAF_RENAMES.items() if "." in tail}
     out: Dict[str, np.ndarray] = {}
@@ -113,6 +109,8 @@ def to_jax_paths(tensors: Mapping[str, torch.Tensor], model: nn.Module) -> Dict[
         last_two = ".".join(key.split(".")[-2:])
         if owner in norms:
             path = head + ["BatchNorm_0", norm_leaves.get(tail, tail)]
+        elif owner in masked:
+            path = head + [norm_leaves.get(tail, tail)]
         elif last_two in dotted:                            # graph / init_transform / embedding
             leaf, transpose = dotted[last_two]
             path, value = head[:-1] + [leaf], (value.T if transpose else value)

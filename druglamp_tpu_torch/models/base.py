@@ -1,12 +1,16 @@
-"""DrugLAMP trunk shared by the forward variants (port of the trunk of
+"""DrugLAMP trunk shared by the forward variants (port of
 ``druglamp_tpu/models/base.py``: extractors, LLM adaptors, site pooling, the
-two fusion stages, PMMA and the classifier).
+two fusion stages, PMMA and the classifier, and the SSL and CM loss heads,
+which ``ssl_loss`` and ``cm_loss`` run on the ``ssl_inputs`` / ``cm_inputs``
+that a variant's forward returns).
 
 Module attribute names are the JAX package's parameter-tree names, so a
 ``state_dict`` key is the flax path with ``.`` separators
 (``convert.from_jax_params``).  A variant without the LLM stream
-(``uses_llm = False``) builds no LLM adaptors and no x-fusion, as the JAX
-model then creates no parameters for them.
+(``uses_llm = False``) builds no LLM adaptors and no x-fusion, and of the SSL
+heads only the protein MLM's ``to_logits``, as the JAX model then creates no
+parameters for the others.  The SSL head shares the ``protein_extractor``
+module itself.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 from torch import nn
 
 from druglamp_tpu_torch.config import Config
+from druglamp_tpu_torch.models.cm import CrossModality
+from druglamp_tpu_torch.models.ssl import SSL
 from druglamp_tpu_torch.nn.gca import GuidedCrossAttention
 from druglamp_tpu_torch.nn.gcn import MolecularGCN
 from druglamp_tpu_torch.nn.layers import Dense, LayerNorm, gelu
@@ -29,6 +35,7 @@ from druglamp_tpu_torch.utils.numerics import true_f32
 
 class DrugLAMPBase(nn.Module):
     uses_llm = True
+    with_cm_inputs = False      # the forward returns ``cm_inputs`` (DrugLAMP2C2P)
 
     def __init__(self, n_drug_feature: int = 384, n_prot_feature: int = 640,
                  config: Config = Config(), compute_dtype: torch.dtype = torch.float32,
@@ -79,11 +86,38 @@ class DrugLAMPBase(nn.Module):
         self.mlp_classifier = MLPClassifier(in_dim=dec.in_dim * 2, hidden_dim=dec.hidden_dim * 2,
                                             out_dim=dec.out_dim * 2, binary=dec.binary)
 
+        self.ssl_model = SSL(self.protein_extractor, n_prot_feature, n_drug_feature, n_hidden=nh,
+                             uses_llm=self.uses_llm)
+        self.cm_model = CrossModality(hidden_size=nh)
+
     def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """The variant's ``_forward`` with its f32 products in true f32."""
         with true_f32():
             return self._forward(batch, need_attn, generator)
+
+    # --- auxiliary loss heads ---------------------------------------------------
+
+    def ssl_loss(self, ssl_inputs: Dict[str, Any],
+                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """{"prot_ssl", "drug_ssl"}: the protein MLM ("vp" mode without the LLM
+        stream, else "double") and the drug SimSiam; the MLM mask is drawn
+        from ``generator``."""
+        p_mode = "vp" if ssl_inputs["xp"] is None else "double"
+        with true_f32():
+            return self.ssl_model(ssl_inputs["vp"], ssl_inputs["xp"], ssl_inputs["fill_bit_p"],
+                                  ssl_inputs["vd"], ssl_inputs["xd"], generator, p_mode=p_mode)
+
+    def cm_loss(self, cm_inputs: Dict[str, Any], gt_arrays: Dict[str, Any],
+                margin) -> torch.Tensor:
+        """The raw triplet loss over the batch's CM ground truth
+        (``gather_compact_batch``'s ``cm``); ``cm_inputs`` from a forward of a
+        model whose ``with_cm_inputs`` is set."""
+        with true_f32():
+            return self.cm_model(cm_inputs["prot"], cm_inputs["aug_prot"], cm_inputs["drug"],
+                                 cm_inputs["aug_drug"], gt_arrays["p_index"],
+                                 gt_arrays["p_valid"], gt_arrays["d_index"],
+                                 gt_arrays["d_valid"], gt_arrays["gt"], margin)
 
     # --- shared forward pieces ---------------------------------------------
 

@@ -46,6 +46,12 @@ class Dense(nn.Linear):
                 inits.uniform_(self.bias, inits.fan_in_bound(self.in_features), g)
 
 
+def _check_groups(groups: int) -> None:
+    if groups != 1:
+        raise NotImplementedError("BatchNorm with per-replica statistics (groups > 1) belongs "
+                                  "to the multi-GPU slice")
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm over every axis but the last, in f32 (flax ``nn.BatchNorm`` as
     ``druglamp_tpu/nn/layers.py::TorchBatchNorm`` configures it, groups=1).
@@ -53,15 +59,20 @@ class TorchBatchNorm(nn.Module):
     Eval normalizes with the running stats.  Train normalizes with the biased
     batch variance and updates the running stats as flax does:
     ``ra = 0.9·ra + 0.1·batch`` with the *biased* variance.  Returns f32 (flax
-    promotes a bf16 input with the f32 scale/bias).
+    promotes a bf16 input with the f32 scale/bias).  ``affine=False`` has no
+    scale and bias (SimSiam's last BatchNorm).
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 affine: bool = True, groups: int = 1):
         super().__init__()
+        _check_groups(groups)
         self.eps = eps
         self.momentum = momentum
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
@@ -76,13 +87,64 @@ class TorchBatchNorm(nn.Module):
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        if self.affine:
+            y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        else:
+            y = (xf - mean) * torch.rsqrt(var + self.eps)
         return y.reshape(shape)
 
     def init_weights(self, g: Optional[torch.Generator]) -> None:
         with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
+            if self.affine:
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d over (N, C) whose statistics come from the rows where
+    ``mask`` is set (``druglamp_tpu/nn/layers.py::MaskedBatchNorm``, groups=1):
+    the cross-modality head normalizes the unique-entity rows of a fixed-size
+    batch.  Train: mean and biased variance over the valid rows (n =
+    max(#valid, 1)); running stats ``0.9·ra + 0.1·batch`` with the *unbiased*
+    variance (torch's convention).  Computed and returned in f32."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True,
+                 groups: int = 1):
+        super().__init__()
+        _check_groups(groups)
+        self.eps = eps
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            m = mask.float()[:, None]
+            n = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(0) / n
+            var = (((xf - mean) ** 2) * m).sum(0) / n
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * self.weight + self.bias
+        return y
+
+    def init_weights(self, g: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            if self.affine:
+                self.weight.fill_(1.0)
+                self.bias.zero_()
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 

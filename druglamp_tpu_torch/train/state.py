@@ -7,8 +7,8 @@ weight decay 0.01, and no learning rate of their own: the step passes each
 loss's LR, which scales the decay term too (p ← p − lr·(adam(g) + wd·p)).
 The parameters and BatchNorm statistics live in the model; this state holds
 the optimizers and the step count, and the step updates both in place.
-Only ``opt_cls`` exists in this slice; ``opt_ssl`` and ``opt_cm`` belong to
-the SSL/CM slice.
+``opt_ssl`` and ``opt_cm`` exist when their loss is in use, each an AdamW
+over *all* the model's parameters, as ``opt_cls``.
 """
 
 from __future__ import annotations
@@ -38,9 +38,23 @@ class TrainState:
     @classmethod
     def create(cls, model: torch.nn.Module, use_ssl: bool = False,
                use_cm: bool = False) -> "TrainState":
-        if use_ssl or use_cm:
-            raise NotImplementedError("the SSL and CM optimizers belong to the SSL/CM slice")
-        return cls(opt_cls=make_adamw(model.parameters()))
+        return cls(opt_cls=make_adamw(model.parameters()),
+                   opt_ssl=make_adamw(model.parameters()) if use_ssl else None,
+                   opt_cm=make_adamw(model.parameters()) if use_cm else None)
+
+    def state_dict(self) -> dict:
+        """The three optimizers' states and the step count (for a checkpoint)."""
+        return {"step": self.step,
+                **{name: (None if opt is None else opt.state_dict())
+                   for name, opt in (("opt_cls", self.opt_cls), ("opt_ssl", self.opt_ssl),
+                                     ("opt_cm", self.opt_cm))}}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
+        for name in ("opt_cls", "opt_ssl", "opt_cm"):
+            opt = getattr(self, name)
+            if opt is not None and state.get(name) is not None:
+                opt.load_state_dict(state[name])
 
 
 def apply_optimizer(opt: torch.optim.AdamW, lr: float) -> None:

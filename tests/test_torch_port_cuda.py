@@ -470,3 +470,180 @@ def test_f32_step_runs_under_deterministic_algorithms(cuda, monkeypatch):
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.isfinite(out.cls_loss)
+
+
+# --- the full DrugLAMP2C2P recipe: the SSL and CM gates, the Trainer ----------------------
+
+def _full_gate(cuda, dtype="bfloat16", dropout=None):
+    """(model, state, step, batch) for DrugLAMP2C2P at full width, seed 0,
+    packed GCN: the full-gate step (ssl, cm, calibrate) and a compact batch
+    of 16 whose CM ground truth has positives, negatives and fallback rows
+    (proteins 0–3 with a positive, protein 4 negatives only)."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import compact_batch
+    from druglamp_tpu_torch.data.loader import build_cm_arrays
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+    from druglamp_tpu_torch.utils.synthetic import make_batch
+
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, compute_dtype=dtype),
+                              pmma_dropout=cfg.pmma_dropout if dropout is None else dropout)
+    model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, True, True, calibrate=True)
+    host = make_batch(cfg, 16, seed=0, n_drug_feature=384, n_prot_feature=640)
+    batch = compact_batch(host, (host["d_fill"] == 0).sum(1))
+    t = np.arange(16)
+    batch["labels"] = ((t % 3 == 0) & (t % 5 != 4)).astype(np.float32)
+    cm = build_cm_arrays(t % 5, t % 7, batch["labels"])
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    batch["cm"] = {k: torch.from_numpy(v).to(cuda) for k, v in cm.items()}
+    return model, TrainState.create(model, True, True), step, batch
+
+
+def test_full_gate_step_launches_the_kernels(cuda, monkeypatch):
+    """One bf16 full-gate step: 4/2 attention forward and backward launches
+    (only the cls loss reaches PMMA), 3 GCN forward and 9 GCN backward (one
+    per loss); finite losses, the CM weight a power of 10 times its start."""
+    from druglamp_tpu_torch.kernels import gcn
+
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    model, state, step, batch = _full_gate(cuda)
+    attention.reset_launch_counts()
+    gcn.reset_launch_counts()
+    out = step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4, 3e-5, 3e-5, 0.5,
+               1e-3)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"paired_attention_fwd": 4, "self_attention_fwd": 2,
+                                  "paired_attention_bwd": 4, "self_attention_bwd": 2}
+    assert gcn.LAUNCHES == {"gcn_packed_matmul": 3, "gcn_packed_matmul_bwd": 9}
+    assert all(torch.isfinite(x) for x in (out.cls_loss, out.ssl_loss, out.cm_loss))
+    k = math.log10(float(out.cm_weight) / 1e-3)
+    assert abs(k - round(k)) < 1e-6
+
+
+def test_f32_full_gate_through_the_kernels_matches_plain(cuda, monkeypatch):
+    """The f32 full-gate step's losses and per-loss gradients (dropout 0, the
+    same MLM draws) through the kernels and through the plain attention and
+    GCN: losses 1e-5, gradients rtol 5e-3 / atol 5e-5, leaf by leaf."""
+    from druglamp_tpu_torch.data.encoding import decode_batch
+    from druglamp_tpu_torch.kernels import gcn
+    from druglamp_tpu_torch.train import steps
+
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    runs = []
+    for plain in (False, True):
+        model, _, _, batch = _full_gate(cuda, "float32", dropout=0.0)
+        model.to(cuda).train()
+        with monkeypatch.context() as mp:
+            if plain:
+                mp.setattr(attention, "paired_attention", attention.paired_attention_plain)
+                mp.setattr(attention, "self_attention", attention.self_attention_plain)
+                mp.setattr(gcn, "gcn_packed_matmul", gcn.gcn_packed_plain)
+            with steps.train_numerics():
+                *losses, _, w, grads = steps.loss_gradients(
+                    model, decode_batch(dict(batch)), torch.Generator(device=cuda).manual_seed(0),
+                    True, True, True, 0.5, torch.ones((), device=cuda))
+        runs.append(([float(x) for x in losses], float(w), grads))
+    (lk, wk, gk), (lp, wp, gp) = runs
+    assert max(abs(a - b) for a, b in zip(lk, lp)) <= 1e-5 and wk == wp
+    for loss in ("cls", "ssl", "cm"):
+        for a, b in zip(gk[loss], gp[loss]):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-5)
+
+
+def test_two_f32_full_gate_steps_are_bit_identical(cuda, monkeypatch):
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    runs = []
+    for _ in range(2):
+        model, state, step, batch = _full_gate(cuda, "float32")
+        out = step(state, batch, torch.Generator(device=cuda).manual_seed(0), 1e-4, 3e-5, 3e-5,
+                   0.5, 1.0)
+        runs.append(({k: v.clone() for k, v in model.state_dict().items()},
+                     [float(out.cls_loss), float(out.ssl_loss), float(out.cm_loss)]))
+    (s1, l1), (s2, l2) = runs
+    assert l1 == l2
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
+
+
+def test_trainer_resume_is_bit_identical(cuda, tmp_path, monkeypatch):
+    """A short DrugLAMP2C2P Trainer (full width, 64-node graphs, 9×32
+    protein tiles, bf16, packed GCN) over 3 epochs (cls; ssl + cm +
+    calibrate; cm) on the card against one that restores the epoch-2
+    ckpt_last.pt into a model with other weights and trains epoch 3: equal
+    checkpoints, leaf by leaf."""
+    import shutil
+
+    from druglamp_tpu_torch.config import RSConfig, SolverConfig
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+    from druglamp_tpu_torch.data.device_data import DeviceDataStore
+    from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
+    from druglamp_tpu_torch.data.loader import BatchLoader
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.trainer import Trainer
+    from druglamp_tpu_torch.utils.synthetic import tiny_config
+
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    cfg = tiny_config(n_hidden=128, max_nodes=64, site_seq=32,
+                      solver=SolverConfig(max_epoch=3, batch_size=4, ckpt_every=1),
+                      rs=RSConfig(ssl=True, cm=True, init_epoch=2, epoch_step=2))
+    r = np.random.RandomState(0)
+    smiles = ["C" * 20, "CCO" * 8, "c1ccccc1" + "CC" * 8, "CN" * 12, "OCC(O)CO" * 3]
+    prots = ["".join("ACDEFGHIKLMNPQRSTVWY"[i] for i in r.randint(0, 20, n)) for n in (40, 60, 90)]
+    d = tmp_path / "toy" / "random"
+    d.mkdir(parents=True)
+    for name, n in (("train.csv", 24), ("val.csv", 8), ("test.csv", 8)):
+        rows = [f"{smiles[r.randint(5)]},{prots[r.randint(3)]},{i % 2}" for i in range(n)]
+        (d / name).write_text("\n".join(["SMILES,Protein,Y"] + rows) + "\n")
+    kw = dict(max_nodes=64, seq_len=cfg.protein.seq_len, max_prot_resis=cfg.protein.max_resis)
+    train = DTIDataset(str(tmp_path), "toy", "random", "train.csv", **kw)
+    val = DTIDataset(str(tmp_path), "toy", "random", "val.csv", table=train.table, **kw)
+    test = DTIDataset(str(tmp_path), "toy", "random", "test.csv", table=train.table, **kw)
+    cache = EmbeddingCache(str(tmp_path / "emb"), "toy")
+    for o in range(train.table.n_drug):
+        cache.put_drug(o, r.randn(12, 384))
+    for o in range(train.table.n_prot):
+        cache.put_prot(o, r.randn(30, 640))
+    emb = DeviceEmbeddingStore.build(train.table, cache, max_drug_tokens=64,
+                                     max_prot_len=cfg.protein.max_resis + 2).tree
+    data = DeviceDataStore.build(train.table, 64, cfg.protein.seq_len, True, True)
+    loaders = (BatchLoader(train, 4, True, True, seed=1, emb_ordinals=True),
+               BatchLoader(val, 4, False, False, emb_ordinals=True),
+               BatchLoader(test, 4, False, False, emb_ordinals=True))
+
+    def trainer(work, seed):
+        model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(seed))
+        t = Trainer(model, cfg, *loaders, work_dir=str(tmp_path / work), embed_store=emb,
+                    device_data=data)
+        t.patience = 3
+        return t, TrainState.create(model, True, True)
+
+    full, state = trainer("full", 0)
+    save = full._save
+
+    def keep_epoch2(path, snapshot):
+        save(path, snapshot)
+        if path.endswith("ckpt_last.pt") and full.epoch == 2:
+            shutil.copy(path, tmp_path / "epoch2.pt")
+
+    full._save = keep_epoch2
+    full.fit(state, 7)
+    (tmp_path / "resumed").mkdir()
+    shutil.copy(tmp_path / "epoch2.pt", tmp_path / "resumed" / "ckpt_last.pt")
+    resumed, state = trainer("resumed", 1)
+    resumed.restore(str(tmp_path / "resumed" / "ckpt_last.pt"), state)
+    resumed.fit(state, 7, start_epoch=resumed.epoch + 1)
+    a = torch.load(tmp_path / "full" / "ckpt_last.pt", weights_only=True)
+    b = torch.load(tmp_path / "resumed" / "ckpt_last.pt", weights_only=True)
+    assert a["host"] == b["host"] and a["host"]["epoch"] == 3
+    assert all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"])
+    for opt in ("opt_cls", "opt_ssl", "opt_cm"):
+        sa, sb = a["optim"][opt]["state"], b["optim"][opt]["state"]
+        assert sa and set(sa) == set(sb)
+        assert all(torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))
+                   for i in sa for k in sa[i])

@@ -39,7 +39,7 @@ from druglamp_tpu.nn.gcn import MolecularGCN as JMolecularGCN
 from druglamp_tpu.train.state import TrainState as JTrainState
 from druglamp_tpu.train.steps import make_epoch_step_gather as jmake_epoch
 from druglamp_tpu.train.steps import make_eval_scan_gather as jmake_eval_scan
-from druglamp_tpu_torch.convert import SKIPPED_SUBTREES, from_jax_params, to_jax_paths
+from druglamp_tpu_torch.convert import from_jax_params, to_jax_paths
 from druglamp_tpu_torch.data import encoding as penc
 from druglamp_tpu_torch.data.cache import EmbeddingCache
 from druglamp_tpu_torch.data.dataset import DTIDataset
@@ -216,9 +216,7 @@ def test_molecular_gcn_packed_matches_jax_packed(interpret):
     ref = jmod.apply({"params": params, "batch_stats": stats}, jnp.asarray(feats), jadj, deg)
 
     port = MolecularGCN(dim_embedding=16, hidden_feats=(16, 16, 16))
-    state, skipped = from_jax_params(params, stats, port)
-    assert not skipped
-    port.load_state_dict(state)
+    port.load_state_dict(from_jax_params(params, stats, port))
     port.eval()
     tdeg = torch.from_numpy(np.array(deg))
     with torch.no_grad():
@@ -434,8 +432,7 @@ def test_metrics_are_bit_identical(seed):
 # --- the device-resident epoch and eval pass ---------------------------------------------
 
 def _flat(tree):
-    return {"/".join(k): np.asarray(v) for k, v in traverse_util.flatten_dict(tree).items()
-            if k[0] not in SKIPPED_SUBTREES}
+    return {"/".join(k): np.asarray(v) for k, v in traverse_util.flatten_dict(tree).items()}
 
 
 @pytest.fixture(scope="module")

@@ -14,10 +14,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "druglamp_tpu")
 PORT_FILES = sorted((ROOT / "druglamp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-# The modules of the device-resident epoch and the packed GCN kernel (the
-# glob above must reach them).
+# The modules of the device-resident epoch and the packed GCN kernel, and of
+# the SSL/CM gates and the Trainer (the glob above must reach them).
 SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py",
-                 "data/dataset.py", "data/cache.py", "eval/metrics.py", "train/steps.py")
+                 "data/dataset.py", "data/cache.py", "eval/metrics.py", "train/steps.py",
+                 "nn/layers.py", "losses/masking.py", "losses/schedules.py", "models/ssl.py",
+                 "models/cm.py", "models/base.py", "models/druglamp.py", "convert.py",
+                 "train/state.py", "train/schedule.py", "train/trainer.py",
+                 "utils/logging.py", "config.py", "data/loader.py")
 
 
 def _imported_modules(path):

@@ -72,10 +72,16 @@ def _fresh(cfg):
 
 
 def test_bridge_lists_skipped_heads(cfg, trees):
+    """The bridge skips nothing now: the SSL and CM heads' leaves (here
+    DrugLAMPwoLLM's MLM head and the CM head, BatchNorm stats included) map
+    to the model's keys like every other leaf."""
     params, stats = trees
-    _, skipped = from_jax_params(params, stats, _fresh(cfg))
-    assert skipped and all(p.split("/")[0] in ("ssl_model", "cm_model") for p in skipped)
-    assert any(p.startswith("ssl_model/") for p in skipped)
+    state = from_jax_params(params, stats, _fresh(cfg))
+    heads = {k for k in state if k.split(".")[0] in ("ssl_model", "cm_model")}
+    assert any(k.startswith("ssl_model.to_logits.") for k in heads)
+    assert {"cm_model.prot2latent.bn.running_mean", "cm_model.prot2latent.bn.weight"} <= heads
+    flax = [p for tree in (params, stats) for p in tree if p in ("ssl_model", "cm_model")]
+    assert sorted(flax) == ["cm_model", "cm_model", "ssl_model"]
 
 
 def test_bridge_refuses_missing_key(cfg, trees):

@@ -35,9 +35,7 @@ def _carry(jmodule, tmodule, args, seed=0, train_args=None):
     rng = np.random.RandomState(seed)
     params = perturb(variables["params"], rng)
     stats = random_stats(variables.get("batch_stats", {}), rng)
-    state, skipped = from_jax_params(params, stats, tmodule)
-    assert not skipped
-    tmodule.load_state_dict(state)
+    tmodule.load_state_dict(from_jax_params(params, stats, tmodule))
     return {"params": params, "batch_stats": stats}, tmodule.eval()
 
 
@@ -170,7 +168,7 @@ def test_dense_dtype_rule(x_dtype, dense_dtype, want):
     jm = TorchDense(4, dtype=jdt)
     variables = jm.init(jax.random.key(0), jx)
     tm = Dense(8, 4, dtype=dense_dtype)
-    state, _ = from_jax_params(variables["params"], {}, tm)
+    state = from_jax_params(variables["params"], {}, tm)
     tm.load_state_dict(state)
     ref = jm.apply(variables, jx)
     out = tm(torch.from_numpy(x).to(x_dtype))

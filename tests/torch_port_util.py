@@ -72,7 +72,7 @@ def build_pair(name: str, cfg, seed: int = 0):
     jmodel = jax_build_model(name, cfg, ND, NP)
     params, stats = jax_variables(jmodel, cfg, seed)
     pmodel = port_build_model(name, port_config(cfg), ND, NP)
-    state, _ = from_jax_params(params, stats, pmodel)
+    state = from_jax_params(params, stats, pmodel)
     pmodel.load_state_dict(state)
     return jmodel, params, stats, pmodel.eval()
 
