@@ -1329,27 +1329,18 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchr
               "cudaMemcpy")
 
 
-def waits_inside(torch, events, span: str):
-    """Count of each HOST_WAITS call that lies inside the host range ``span``
-    of a profiled run (None when the range is absent)."""
-    ranges = [e.time_range for e in events if e.name == span
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    if not ranges:
-        return None
-    counts = dict.fromkeys(HOST_WAITS, 0)
-    for e in events:
-        if e.name in counts and any(r.start <= e.time_range.start and e.time_range.end <= r.end
-                                    for r in ranges):
-            counts[e.name] += 1
-    return counts
+def waits_inside(torch, prof, span: str):
+    """Count of each HOST_WAITS call inside the one host range ``span`` of a
+    profiled run (``loop_counts``' reading; None unless there is one range)."""
+    ranges = loop_counts(torch, prof, span, HOST_WAITS)
+    return ranges[0][0] if len(ranges) == 1 else None
 
 
 def wait_control(torch, epoch, state, plan, emb, gen):
     """The positive control of the in-loop count: a one-step epoch whose
     batch gather also copies the plan from pageable memory (what the epoch
     did before it staged the plan in pinned memory) and synchronises, inside
-    ``epoch_step.loop``.  Returns the count ``waits_inside`` reads there,
-    after holding ``loop_counts`` (phase 11's count) to it."""
+    ``epoch_step.loop``.  Returns the count ``waits_inside`` reads there."""
     import numpy as np
 
     from druglamp_tpu_torch.train import steps
@@ -1368,11 +1359,7 @@ def wait_control(torch, epoch, state, plan, emb, gen):
             epoch(state, idx[:1], ones[:1], tree, emb, gen, TRAIN_LR)
     finally:
         steps.gather_compact_batch = gather
-    counts = waits_inside(torch, prof.events(), "epoch_step.loop")
-    raw = loop_counts(torch, prof, "epoch_step.loop", HOST_WAITS)   # phase 11's reading
-    if not raw or raw[0][0] != counts:
-        fail(f"the raw-record count of the control ({raw}) differs from the event tree's {counts}")
-    return counts
+    return waits_inside(torch, prof, "epoch_step.loop")
 
 
 def epoch_timing(torch, state, epoch, plan, emb):
@@ -1408,8 +1395,8 @@ def epoch_timing(torch, state, epoch, plan, emb):
     syncs = {k: sum(e.count for e in averages if e.key == k)
              for k in ("aten::item", "aten::_local_scalar_dense")}
     waits = {k: sum(e.count for e in averages if e.key == k) for k in HOST_WAITS}
-    loop_waits = waits_inside(torch, prof.events(), "epoch_step.loop")
-    call_waits = waits_inside(torch, prof.events(), "chip_smoke.epoch_call")
+    loop_waits = waits_inside(torch, prof, "epoch_step.loop")
+    call_waits = waits_inside(torch, prof, "chip_smoke.epoch_call")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as empty:
         pass
     own_waits = {k: sum(e.count for e in empty.key_averages() if e.key == k) for k in HOST_WAITS}
@@ -1437,7 +1424,7 @@ def epoch_timing(torch, state, epoch, plan, emb):
     if any(syncs.values()):
         fail(f"the epoch reads device values back to the host: {syncs}")
     if loop_waits is None:
-        fail("the profiled epoch has no epoch_step.loop range")
+        fail("the profiled epoch has not one epoch_step.loop range")
     if any(loop_waits.values()):
         fail(f"the host waits for the device inside epoch_step's loop: {loop_waits}")
     control = wait_control(torch, epoch, state, plan, emb, gen)
@@ -1721,10 +1708,9 @@ def fit_checks(torch, attention, gcn, train, val, test, data, emb):
         base, rs=dataclasses.replace(base.rs, ssl=True, cm=True, init_epoch=2, epoch_step=2),
         solver=dataclasses.replace(base.solver, max_epoch=FIT_EPOCHS, ckpt_every=1,
                                    cm_lr=CM_LR, eval_batch_size=EVAL_B))
-    loaders = (BatchLoader(train, TRAIN_B, shuffle=True, drop_last=True, seed=SEED,
-                           emb_ordinals=True),
-               BatchLoader(val, EVAL_B, shuffle=False, drop_last=False, emb_ordinals=True),
-               BatchLoader(test, EVAL_B, shuffle=False, drop_last=False, emb_ordinals=True))
+    loaders = (BatchLoader(train, TRAIN_B, shuffle=True, drop_last=True, seed=SEED),
+               BatchLoader(val, EVAL_B, shuffle=False, drop_last=False),
+               BatchLoader(test, EVAL_B, shuffle=False, drop_last=False))
     S = len(loaders[0])
     print(f"  DrugLAMP2C2P at Config(), bf16, DRUGLAMP_PACKED_GCN=1; Trainer.fit over "
           f"{FIT_EPOCHS} epochs of {S} steps (ssl and cm on, init_epoch 2, epoch_step 2: cls, "

@@ -7,10 +7,11 @@ size, its number of batches and each epoch's order (``_order``: the seeded
 ``RandomState(seed·100003 + epoch)`` permutation, bit-identical to the JAX
 package's), and assembles one compact batch on the host (``first_batch`` /
 ``_assemble_compact``; the device gather, ``data/device_data.py``, gives the
-same batch on the device).  Its dense assembly, prefetch thread,
-``epoch`` / ``stacked_epoch`` iterators and the native packer belong to the
-host-pipeline slice.  Host LLM arrays are float32 here (numpy has no
-bfloat16).
+same batch on the device).  A batch carries the drug and protein ordinals
+of its pairs in place of their LLM embeddings, which the step gathers from
+the device store (``data/device_store.py``).  The host-side LLM assembly,
+the dense assembly, prefetch thread, ``epoch`` / ``stacked_epoch``
+iterators and the native packer belong to the host-pipeline slice.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from typing import Dict
 
 import numpy as np
 
-from druglamp_tpu_torch.data.cache import ZeroEmbeddings
 from druglamp_tpu_torch.data.encoding import pack_node_feats
 
 
@@ -61,20 +61,12 @@ class BatchLoader:
     """A split's batch order and compact host assembly (module docstring)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool,
-                 embeddings=None, seed: int = 0, include_llm: bool = True,
-                 emb_ordinals: bool = False):
+                 seed: int = 0):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self.emb = embeddings if embeddings is not None else ZeroEmbeddings()
         self.seed = seed
-        self.include_llm = include_llm
-        # ship int32 entity ordinals in place of the LLM embeddings; the step
-        # gathers them from the device store (data/device_store.py)
-        self.emb_ordinals = emb_ordinals
-        if emb_ordinals and not include_llm:
-            raise ValueError("emb_ordinals needs the LLM stream")
 
     def __len__(self):
         n = len(self.ds)
@@ -91,7 +83,7 @@ class BatchLoader:
         """The compact batch of dataset rows ``idx``: bit-packed adjacency
         (group-64 layout: column c → byte c mod N/8, bit c div N/8) scattered
         from the edge lists, packed node features, scalar fill starts, the
-        CM ground truth; a short batch is padded with its first row and
+        CM ground truth and the entity ordinals; a short batch is padded with its first row and
         ``valid`` masks the padding."""
         ds = self.ds
         n_real = len(idx)
@@ -101,7 +93,6 @@ class BatchLoader:
         B = len(idx)
         N = ds.max_nodes
         L = ds.seq_len
-        nd = self.emb.n_drug_feature
 
         nb = N // 8
         eye = np.zeros((N, nb), np.uint8)
@@ -114,18 +105,10 @@ class BatchLoader:
             "n_atoms": np.zeros((B,), np.int32),
             "vp": np.zeros((B, L), np.uint8),
             "p_fill_start": np.zeros((B,), np.int32),
-            "d_ntok": np.zeros((B,), np.int32),
             "labels": np.zeros((B,), np.float32),
+            "drug_ord": np.zeros((B,), np.int32),
+            "prot_ord": np.zeros((B,), np.int32),
         }
-        if self.emb_ordinals:
-            batch["drug_ord"] = np.zeros((B,), np.int32)
-            batch["prot_ord"] = np.zeros((B,), np.int32)
-            del batch["d_ntok"]        # gathered on the device from the store's lengths
-        elif self.include_llm:
-            batch["xd"] = np.zeros((B, N, nd), np.float32)
-            batch["xp_src"] = np.zeros((B, ds.max_prot_resis + 2, self.emb.n_prot_feature),
-                                       np.float32)
-            batch["xp_len"] = np.zeros((B,), np.int32)
 
         for b, i in enumerate(idx):
             dord = int(ds.drug_ords[i])
@@ -142,20 +125,8 @@ class BatchLoader:
             batch["vp"][b] = prec.codes
             batch["p_fill_start"][b] = prec.fill_start
             batch["labels"][b] = ds.labels[i]
-
-            if self.emb_ordinals:
-                batch["drug_ord"][b] = dord
-                batch["prot_ord"][b] = pord
-                continue
-            demb = self.emb.drug(dord)
-            t = min(demb.shape[0], N)
-            batch["d_ntok"][b] = t
-            if self.include_llm:
-                batch["xd"][b, :t] = demb[:t]
-                pemb = self.emb.prot(pord)
-                lp = min(pemb.shape[0], batch["xp_src"].shape[1])
-                batch["xp_src"][b, :lp] = pemb[:lp]
-                batch["xp_len"][b] = lp
+            batch["drug_ord"][b] = dord
+            batch["prot_ord"][b] = pord
 
         batch["valid"] = (np.arange(B) < n_real).astype(np.float32)
         batch["cm"] = build_cm_arrays(ds.prot_ords[idx], ds.drug_ords[idx], ds.labels[idx])

@@ -612,9 +612,9 @@ def test_trainer_resume_is_bit_identical(cuda, tmp_path, monkeypatch):
     emb = DeviceEmbeddingStore.build(train.table, cache, max_drug_tokens=64,
                                      max_prot_len=cfg.protein.max_resis + 2).tree
     data = DeviceDataStore.build(train.table, 64, cfg.protein.seq_len, True, True)
-    loaders = (BatchLoader(train, 4, True, True, seed=1, emb_ordinals=True),
-               BatchLoader(val, 4, False, False, emb_ordinals=True),
-               BatchLoader(test, 4, False, False, emb_ordinals=True))
+    loaders = (BatchLoader(train, 4, True, True, seed=1),
+               BatchLoader(val, 4, False, False),
+               BatchLoader(test, 4, False, False))
 
     def trainer(work, seed):
         model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(seed))

@@ -468,19 +468,13 @@ def _step_batch(cfg):
     return c
 
 
-def _jax_reference(name, jmodel, params, stats, batch):
-    """One JAX program: the values, gradients and running stats of the JAX
-    step's shared forward (cls, then ssl, then cm, stats threaded in that
-    order) at the initial weights, and the JAX step itself on the full gate
-    (2C2P) or the ssl gate (woLLM), per_loss."""
-    use_cm = name == "DrugLAMP2C2P"
-    jbatch = jax.tree.map(jnp.asarray, batch)
-    body = jsteps._make_step_body(jmodel, True, use_cm, use_cm, "per_loss", 1)
+def _jax_loss_grads(jmodel, use_cm):
+    """The JAX step's shared forward as a function of (params, batch_stats,
+    decoded batch): the (cls, ssl, raw cm) losses at those weights, one
+    gradient per loss, and the running stats after cls, ssl and cm (threaded
+    in that order)."""
 
-    @jax.jit
-    def run(p, s, state):
-        decoded = jenc.decode_batch(dict(jbatch))
-
+    def fn(p, s, decoded):
         def losses_fn(p):
             out, m1 = jmodel.apply({"params": p, "batch_stats": s}, decoded, train=True,
                                    rngs={"dropout": jax.random.key(0)}, mutable=["batch_stats"])
@@ -500,6 +494,24 @@ def _jax_reference(name, jmodel, params, stats, batch):
         losses, vjp, stages = jax.vjp(losses_fn, p, has_aux=True)
         units = jnp.eye(3, dtype=jnp.float32)
         grads = [vjp(tuple(units[i]))[0] for i in range(3 if use_cm else 2)]
+        return losses, grads, stages
+
+    return fn
+
+
+def _jax_reference(name, jmodel, params, stats, batch):
+    """One JAX program: the values, gradients and running stats of the JAX
+    step's shared forward (``_jax_loss_grads``) at the initial weights, and
+    the JAX step itself on the full gate (2C2P) or the ssl gate (woLLM),
+    per_loss."""
+    use_cm = name == "DrugLAMP2C2P"
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    body = jsteps._make_step_body(jmodel, True, use_cm, use_cm, "per_loss", 1)
+    loss_grads = _jax_loss_grads(jmodel, use_cm)
+
+    @jax.jit
+    def run(p, s, state):
+        losses, grads, stages = loss_grads(p, s, jenc.decode_batch(dict(jbatch)))
         out = body(state, jbatch, jax.random.key(2), *map(jnp.float32, (LR, LR_SSL, LR_CM,
                                                                         MARGIN, CM_W0)))
         return losses, grads, stages, out

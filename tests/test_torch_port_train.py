@@ -264,7 +264,8 @@ def test_dropout_step_is_reproducible_from_its_seed():
 
 # --- what the slice refuses ------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["use_ssl", "use_cm", "calibrate", "state_ssl", "grad_mode"])
+@pytest.mark.parametrize("case", ["grouped_ssl_bn", "grouped_cm", "trainer_without_device_data",
+                                  "grouped_masked_bn", "grad_mode"])
 def test_refuses_what_later_slices_port(case):
     """The gates themselves are ported (tests/test_torch_port_ssl_cm.py); what
     stays refused: their per-replica BatchNorm and CM mining (groups > 1, the
@@ -280,13 +281,13 @@ def test_refuses_what_later_slices_port(case):
     model = port_build_model("DrugLAMPwoLLM", port_config(cfg), ND, NP)
     err = ValueError if case == "grad_mode" else NotImplementedError
     with pytest.raises(err):
-        if case == "use_ssl":
+        if case == "grouped_ssl_bn":
             SSL(ProteinCNN(16, (16,) * 3), NP, ND, n_hidden=16, bn_groups=2)
-        elif case == "use_cm":
+        elif case == "grouped_cm":
             CrossModality(16, groups=2)
-        elif case == "calibrate":
+        elif case == "trainer_without_device_data":
             Trainer(model, port_config(cfg), None, None, None, device="cpu")
-        elif case == "state_ssl":
+        elif case == "grouped_masked_bn":
             MaskedBatchNorm(16, groups=2)
         else:
             make_train_step(model, False, False, grad_mode="summed", device="cpu")

@@ -17,13 +17,14 @@ both packages (every 5th non-pad position, as
   to 3 in both packages so that all three epochs run: per-epoch losses and
   validation AUSum 1e-5, the CM weight exact, the margin bit-identical, the
   same best epoch; the test metrics on the best state 1e-5.
-- The calibrating epoch's driver over 4 steps against the JAX package's
-  (the Trainer's own compiled one), its three LRs at EPOCH_LR: per-step
-  losses 1e-5, the CM weight
-  exact, BatchNorm running stats 1e-5, parameters within 2·Σlr·steps (an
-  AdamW update is at most lr, and where a gradient is rounding noise its
-  sign is too; tests/test_torch_port_ssl_cm.py holds one step's update
-  tightly) and 99% of entries within 1e-6.
+- The calibrating epoch (make_epoch_step_gather) over 4 steps, LRs at EPOCH_LR,
+  per step against the JAX package at the weights the port's step starts
+  from: losses, gradients, the CM weight, the parameters after JAX's three
+  AdamWs (their states carried) on the port's gradients, running stats;
+  and at its end against the JAX package's own compiled epoch, the
+  parameters held as tests/test_torch_port_ssl_cm.py holds one step's.  A
+  negative control shows the per-step check fails against AdamWs whose
+  state is not carried from step to step.
 - Resume: a run stopped after epoch 2 and resumed from ``ckpt_last.pt``
   ends bit-identical to the unbroken run, leaf by leaf, dropout and the MLM
   sampler on.
@@ -53,7 +54,9 @@ from druglamp_tpu.data.device_data import DeviceDataStore as JDataStore
 from druglamp_tpu.data.device_store import DeviceEmbeddingStore as JEmbStore
 from druglamp_tpu.data.loader import BatchLoader as JBatchLoader
 from druglamp_tpu.data.loader import build_cm_arrays as jbuild_cm_arrays
+from druglamp_tpu.train import steps as jsteps
 from druglamp_tpu.train.state import TrainState as JTrainState
+from druglamp_tpu.train.state import apply_optimizer as japply
 from druglamp_tpu.train.trainer import Trainer as JTrainer
 from druglamp_tpu.utils.logging import ExperimentLogger as JLogger
 from druglamp_tpu.utils.synthetic import tiny_config
@@ -72,7 +75,9 @@ from druglamp_tpu_torch.train.steps import make_epoch_step_gather
 from druglamp_tpu_torch.train.trainer import Trainer
 from druglamp_tpu_torch.utils.logging import ExperimentLogger
 from tests.test_device_data import _RandEmb
-from tests.test_torch_port_ssl_cm import _jax_fixed_mask, _port_fixed_mask
+from druglamp_tpu_torch.train import steps as psteps
+from tests.test_torch_port_ssl_cm import (CM_W0, MARGIN, _assert_params_close, _flat,
+                                          _jax_fixed_mask, _jax_loss_grads, _port_fixed_mask)
 from tests.torch_port_util import ND, NP, build_pair, port_config
 
 B = 4
@@ -131,9 +136,9 @@ def _world(root, cfg, build):
     train = ds_cls(root, "toy", "random", "train.csv", **kw)
     val = ds_cls(root, "toy", "random", "val.csv", table=train.table, **kw)
     test = ds_cls(root, "toy", "random", "test.csv", table=train.table, **kw)
-    lkw = dict(include_llm=True, emb_ordinals=True)
+    lkw = {}
     if loader_cls is JBatchLoader:
-        lkw.update(prefetch=0, compact=True)
+        lkw.update(include_llm=True, emb_ordinals=True, prefetch=0, compact=True)
     loaders = (loader_cls(train, B, shuffle=True, drop_last=True, seed=SEED, **lkw),
                loader_cls(val, B, shuffle=False, drop_last=False, **lkw),
                loader_cls(test, B, shuffle=False, drop_last=False, **lkw))
@@ -225,6 +230,85 @@ def test_yaml_recipes_load_like_the_jax_package(name):
 
 # --- the 3-epoch fit --------------------------------------------------------------------
 
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if tree.dtype == torch.bfloat16:               # numpy's bfloat16 is ml_dtypes'
+        return tree.detach().float().numpy().astype(jnp.bfloat16)
+    return tree.detach().numpy().copy()
+
+
+def _recording(loss_gradients, steps):
+    """``loss_gradients`` that also keeps, for each step of the epoch, the
+    flat weights and running stats it starts from, its decoded batch, the
+    CM weight it is given, its losses, its calibrated weight and its
+    gradients (flax paths; the CM gradient times the weight)."""
+
+    def recorded(model, batch, generator, use_ssl, use_cm, calibrate, margin, cm_weight,
+                 n_class=1):
+        start = {k: v.copy() for k, v in to_jax_paths(model.state_dict(), model).items()}
+        cls, ssl, cm, probs, w, grads = loss_gradients(model, batch, generator, use_ssl, use_cm,
+                                                       calibrate, margin, cm_weight, n_class)
+        names = [n for n, _ in model.named_parameters()]
+        steps.append({"start": start, "batch": _numpy_tree(batch),
+                      "w_in": np.float32(cm_weight), "w": np.float32(w),
+                      "losses": [float(x) for x in (cls, ssl, cm)],
+                      "grads": {k: to_jax_paths(dict(zip(names, v)), model)
+                                for k, v in grads.items()}})
+        return cls, ssl, cm, probs, w, grads
+
+    return recorded
+
+
+def _tree(flat, keys):
+    return traverse_util.unflatten_dict({tuple(k.split("/")): jnp.asarray(flat[k]) for k in keys})
+
+
+def _jax_epoch_steps(jmodel, params, stats, steps, lrs):
+    """The JAX package at each step of the port's epoch, from the weights and
+    running stats the port's step starts from: its losses, gradients and
+    running stats (``_jax_loss_grads``, compiled), the same gradients from
+    JAX's op-by-op run of that function (``eager_grads``: the spread of two
+    f32 programs of the JAX package), its ``_calibrate`` from the weight the
+    step is given; then its three AdamWs applied in order to the port's
+    gradients of each step, their states carried from step to step
+    (``carried``), and, as a negative control, made anew at every step
+    (``reset``)."""
+    pkeys, skeys = list(_flat(params)), list(_flat(stats))
+    fn = _jax_loss_grads(jmodel, True)
+    loss_grads = jax.jit(fn)
+    opts = {}
+    out = []
+    for k, st in enumerate(steps):
+        p, s = _tree(st["start"], pkeys), _tree(st["start"], skeys)
+        batch = jax.tree.map(jnp.asarray, st["batch"])
+        losses, grads, stages = loss_grads(p, s, batch)
+        with jax.disable_jit():
+            _, eager, _ = fn(p, s, batch)
+        cls, ssl, cm = (np.float32(x) for x in losses)
+        w = np.float32(jsteps._calibrate(jnp.float32(cm), jnp.float32(cls),
+                                         jnp.float32(st["w_in"])))
+
+        def per_loss(g):
+            return {"cls": _flat(g[0]), "ssl": _flat(g[1]),
+                    "cm": {key: v * w for key, v in _flat(g[2]).items()}}
+
+        rec = {"losses": [float(cls), float(ssl), float(cm * w)], "w": w,
+               "grads": per_loss(grads), "eager_grads": per_loss(eager),
+               "stats": _flat(stages[2])}
+        for mode in ("carried", "reset"):
+            if mode not in opts or mode == "reset":
+                fresh = JTrainState.create({"params": p, "batch_stats": {}}, True, True)
+                opts[mode] = [fresh.opt_cls, fresh.opt_ssl, fresh.opt_cm]
+            q = p
+            for i, (name, lr) in enumerate(zip(("cls", "ssl", "cm"), lrs)):
+                q, opts[mode][i] = japply(opts[mode][i], _tree(st["grads"][name], pkeys), q,
+                                          jnp.float32(lr))
+            rec[mode] = _flat(q)
+        out.append(rec)
+    return out
+
+
 @pytest.fixture(scope="module")
 def fits(tmp_path_factory):
     """Both Trainers over 3 epochs from the same weights, the mask injected;
@@ -265,7 +349,7 @@ def fits(tmp_path_factory):
         # the calibrating epoch's driver, 4 steps, from the initial weights
         idx = train_index_plan(pl._order(2), B)
         ones = np.ones(idx.shape, np.float32)
-        lrs = (EPOCH_LR, EPOCH_LR, EPOCH_LR, 0.5, 1e-3)
+        lrs = (EPOCH_LR, EPOCH_LR, EPOCH_LR, MARGIN, CM_W0)
         jfn = jt._gather_fns[True, True, True]
         jstate = JTrainState.create({"params": jax.tree.map(jnp.array, params),
                                      "batch_stats": jax.tree.map(jnp.array, stats)}, True, True)
@@ -279,11 +363,15 @@ def fits(tmp_path_factory):
                                          "stats": jo.state.batch_stats}).items()})
         model = initial
         fn = make_epoch_step_gather(model, True, True, True, True, calibrate=True, device="cpu")
+        steps = []
+        mp.setattr(psteps, "loss_gradients", _recording(psteps.loss_gradients, steps))
         po = fn(TrainState.create(model, True, True), idx, ones, pdata.tree_for(pl.ds), pemb,
                 torch.Generator().manual_seed(0), *lrs)
         out["port"]["epoch"] = ([x.numpy() for x in (po.cls_losses, po.ssl_losses,
                                                      po.cm_losses)],
                                 np.float32(po.cm_weight), to_jax_paths(model.state_dict(), model))
+        out["port"]["steps"] = steps
+        out["jax"]["steps"] = _jax_epoch_steps(jmodel, params, stats, steps, lrs)
     return out
 
 
@@ -316,22 +404,82 @@ def test_test_metrics_on_the_best_state_match_jax(fits):
 
 
 def test_calibrating_epoch_matches_jax(fits):
+    """The port's calibrating epoch against the JAX package's compiled one
+    from the same weights: per-step losses 1e-5, the last CM weight exact,
+    the running stats 1e-5, the parameters as
+    ``test_step_parameters_and_stats_match_jax`` holds one step's: rtol 1e-5
+    / atol 1e-7 where, at every step, each gradient of the port and of the
+    JAX package (at the port's weights) gives the same AdamW direction to
+    1e-4, else within the LRs' reach (2·Σlr), on at most MAX_NOISY of the
+    entries."""
     (jl, jw, jstate), (pl, pw, pstate) = fits["jax"]["epoch"], fits["port"]["epoch"]
     for name, a, b in zip(("cls", "ssl", "cm"), pl, jl):
         assert a.shape == b.shape == (4,)
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5, err_msg=name)
     assert pw == jw
-    bound = 2 * 3 * EPOCH_LR * 4
-    diffs = []
+    want = {}
     for key, ref in jstate.items():
         kind, path = key.split("/", 1)
         if kind == "stats":
             np.testing.assert_allclose(pstate[path], ref, rtol=0, atol=1e-5, err_msg=path)
         else:
-            diffs.append(np.abs(pstate[path] - ref).ravel())
-    diffs = np.concatenate(diffs)
-    assert diffs.max() <= bound, diffs.max()
-    assert np.mean(diffs <= 1e-6) >= 0.99, np.mean(diffs <= 1e-6)
+            want[path] = ref
+    losses = ("cls", "ssl", "cm")
+    applied = [(EPOCH_LR, jr["grads"][loss]) for jr in fits["jax"]["steps"] for loss in losses]
+    other = [(EPOCH_LR, st["grads"][loss]) for st in fits["port"]["steps"] for loss in losses]
+    _assert_params_close({k: pstate[k] for k in want}, want, applied, 1e-5, 1e-7, "epoch",
+                         other)
+
+
+def _step_ends(fits):
+    """The port's flat weights and running stats after each epoch step."""
+    return [st["start"] for st in fits["port"]["steps"][1:]] + [fits["port"]["epoch"][2]]
+
+
+def test_calibrating_epoch_per_step_matches_jax(fits):
+    """Each of the epoch's 4 steps against the JAX package at the weights and
+    running stats the port's step starts from: the losses 1e-5, each loss's
+    gradient rtol 5e-3 / atol 5e-5 (an entry outside that no farther from
+    JAX's compiled gradient than JAX's own op-by-op run comes in the same
+    leaf: where BatchNorm divides by a small batch variance, two f32
+    programs of the JAX package differ beyond it), the CM weight exact (JAX's ``_calibrate``
+    from the weight the previous step left), the parameters after the three
+    AdamWs rtol 1e-5 / atol 1e-7 against JAX's AdamWs applied to the port's
+    gradients with their states carried from step to step, the running stats
+    1e-5."""
+    steps, ref = fits["port"]["steps"], fits["jax"]["steps"]
+    assert len(steps) == len(ref) == 4
+    w_prev = np.float32(CM_W0)
+    for k, (st, jr, end) in enumerate(zip(steps, ref, _step_ends(fits))):
+        assert st["w_in"] == w_prev and st["w"] == jr["w"], (k, st["w_in"], st["w"], jr["w"])
+        w_prev = st["w"]
+        for name, a, b in zip(("cls", "ssl", "cm"), st["losses"], jr["losses"]):
+            assert abs(a - b) <= 1e-5, (k, name, a, b)
+        for loss, want in jr["grads"].items():
+            assert set(st["grads"][loss]) == set(want)
+            for key, v in want.items():
+                diff = np.abs(st["grads"][loss][key] - v)
+                off = diff > 5e-5 + 5e-3 * np.abs(v)
+                spread = np.abs(jr["eager_grads"][loss][key] - v).max()
+                assert np.all(diff[off] <= spread), (k, loss, key, diff[off], spread)
+        for key, v in jr["carried"].items():
+            np.testing.assert_allclose(end[key], v, rtol=1e-5, atol=1e-7, err_msg=f"step {k} {key}")
+        for key, v in jr["stats"].items():
+            np.testing.assert_allclose(end[key], v, rtol=0, atol=1e-5, err_msg=f"step {k} {key}")
+
+
+def test_calibrating_epoch_rejects_reset_optimizers(fits):
+    """Negative control: the per-step parameter check above fails against
+    AdamWs whose moments and step count start anew at every step, so it
+    sees an optimizer state that is not carried across steps."""
+    off = total = 0
+    for k, (jr, end) in enumerate(zip(fits["jax"]["steps"], _step_ends(fits))):
+        if k == 0:
+            continue
+        for key, v in jr["reset"].items():
+            off += int((np.abs(end[key] - v) > 1e-7 + 1e-5 * np.abs(v)).sum())
+            total += v.size
+    assert off > 0.1 * total, (off, total)
 
 
 # --- resume ---------------------------------------------------------------------------
