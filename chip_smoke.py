@@ -119,6 +119,23 @@ printing its own lines; any failure exits non-zero and prints no result:
    included), each epoch's kernel time; a Trainer whose model starts from
    other weights restores the epoch-2 ``ckpt_last.pt`` and trains epoch 3:
    its checkpoint equals the unbroken run's, leaf by leaf.
+12. CLI     — ``druglamp_tpu_torch.cli.main.main(argv)`` in process on phase 9's
+   dataset, ``Config()`` (bf16), ``DRUGLAMP_PACKED_GCN=1``, in the three
+   transports the JAX CLI picks: (a) DrugLAMP2C2P, the recipe cut to 3 epochs
+   (init_epoch 2, epoch_step 2), no embedding cache, so the host pipeline
+   carries zero bf16 LLM arrays ((16, 512, 384) and (16, 1024, 640) a batch,
+   stacked chunks of 18 under the 512 MB cap); (b) the same with a seeded
+   cache and ``--device-data off``: host batches of entity ordinals into the
+   device store; (c) DrugLAMPwoLLM, 1 epoch, ``--device-data auto``: the
+   device-resident dataset; (d) ``--eval-only`` on (a)'s ``ckpt_best.pt``
+   with ``--allow-zero-embeddings``.  Each run profiled: every epoch's gates,
+   finite losses and metrics, the five kernels' launches (4/2/4/2 attention
+   and 3 GCN forwards a step, one GCN backward per loss, 4/2 + 3 an eval
+   batch), no host wait and no host read inside any host loop
+   (``trainer.host_epoch``, ``epoch_step.loop``); per epoch its time (CUDA
+   events, under the profiler), pairs/s, host issue time, kernel time and
+   busy share, host → device bytes and peak memory; (d)'s record equals
+   (a)'s test metrics.
 
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
@@ -1102,13 +1119,27 @@ def write_dataset(root: str):
             f.write("\n".join(["SMILES,Protein,Y"] + rows) + "\n")
 
 
+def seed_cache(path: str, table, cfg):
+    """An EmbeddingCache at ``path`` of seeded random embeddings at the real
+    token lengths (drugs len(SMILES)+2 rows capped at max_nodes, proteins
+    min(len, max_resis)+2), 384 and 640 wide."""
+    import numpy as np
+
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+
+    cache = EmbeddingCache(path, "synthetic")
+    rng = np.random.RandomState(SEED + 6)
+    for smi, o in table.drug2ord.items():
+        cache.put_drug(o, rng.randn(min(len(smi) + 2, cfg.drug.max_nodes), 384))
+    for seq, o in table.prot2ord.items():
+        cache.put_prot(o, rng.randn(min(len(seq), cfg.protein.max_resis) + 2, 640))
+    return cache
+
+
 def build_epoch_data(cfg, root: str):
     """Datasets, an embedding cache of seeded random embeddings at the real
     token lengths (drugs len(SMILES)+2 rows capped at max_nodes, proteins
     min(len, max_resis)+2), and both device stores on the card."""
-    import numpy as np
-
-    from druglamp_tpu_torch.data.cache import EmbeddingCache
     from druglamp_tpu_torch.data.dataset import DTIDataset
     from druglamp_tpu_torch.data.device_data import DeviceDataStore
     from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
@@ -1120,12 +1151,7 @@ def build_epoch_data(cfg, root: str):
     val = DTIDataset(root, "synthetic", "random", "val.csv", table=train.table, **kw)
     test = DTIDataset(root, "synthetic", "random", "test.csv", table=train.table, **kw)
     table = train.table
-    cache = EmbeddingCache(os.path.join(root, "embeddings"), "synthetic")
-    rng = np.random.RandomState(SEED + 6)
-    for smi, o in table.drug2ord.items():
-        cache.put_drug(o, rng.randn(min(len(smi) + 2, cfg.drug.max_nodes), 384))
-    for seq, o in table.prot2ord.items():
-        cache.put_prot(o, rng.randn(min(len(seq), cfg.protein.max_resis) + 2, 640))
+    cache = seed_cache(os.path.join(root, "embeddings"), table, cfg)
     emb = DeviceEmbeddingStore.build(table, cache, max_drug_tokens=cfg.drug.max_nodes,
                                      max_prot_len=cfg.protein.max_resis + 2, device=DEVICE)
     if emb is None:
@@ -1687,6 +1713,11 @@ def loop_counts(torch, prof, span: str, names):
     return out
 
 
+# phase 11's epoch records and test metrics, which phase 12's run (b) repeats
+# over the host pipeline
+FIT_RESULT = {}
+
+
 def fit_checks(torch, attention, gcn, train, val, test, data, emb):
     """Phase 11: ``Trainer.fit`` → launch counts of the main path."""
     import dataclasses
@@ -1766,6 +1797,7 @@ def fit_checks(torch, attention, gcn, train, val, test, data, emb):
         with open(log.jsonl_path) as f:
             records = [json.loads(line) for line in f]
         epochs = [r for r in records if "train_loss" in r]
+        FIT_RESULT.update(epochs=epochs, test=test_metrics, best_epoch=t.best_epoch)
         print(f"  main path, fit and test: launches {launches}", flush=True)
         gates = [("ssl_loss" in r, "cm_loss" in r) for r in epochs]
         if gates != [(False, False), (True, True), (False, True)][:FIT_EPOCHS]:
@@ -1848,6 +1880,372 @@ def fit_checks(torch, attention, gcn, train, val, test, data, emb):
             fail(f"the resumed epoch 3 differs from the unbroken one: {differ[:5]}")
     del t, tp, tr
     return launches
+
+
+# --- phase 12: the training CLI --------------------------------------------------------
+
+# the host ranges inside which nothing may wait for the card or read from it:
+# the Trainer's host epoch loop and eval pass, and the epoch drivers' step loop
+HOST_LOOPS = ("trainer.host_epoch", "epoch_step.loop")
+HOST_READS = ("aten::item", "aten::_local_scalar_dense")
+
+
+def span_stats(torch, prof, spans, names):
+    """For each host range of each of ``spans`` in a profiled run, in order:
+    the count of each of ``names`` among the host calls inside it, and the
+    time (ms) of the device's records that start inside it (kernels and
+    memory copies) and the count of its host → device copies.  One pass over
+    the profiler's raw records; each span's ranges are disjoint, so a record
+    is looked up by bisection."""
+    import bisect
+
+    cpu = torch.autograd.DeviceType.CPU
+    raw = prof.profiler.kineto_results.events()
+    ranges = {sp: sorted((e.start_ns(), e.end_ns()) for e in raw
+                         if e.name() == sp and e.device_type() == cpu) for sp in spans}
+    starts = {sp: [a for a, _ in r] for sp, r in ranges.items()}
+    out = {sp: [dict(dict.fromkeys(names, 0), kernel_ms=0.0, h2d_copies=0) for _ in r]
+           for sp, r in ranges.items()}
+    names = set(names)
+    for e in raw:
+        name, start = e.name(), e.start_ns()
+        on_host = e.device_type() == cpu
+        if on_host and name not in names:
+            continue
+        if not on_host and (e.is_user_annotation() or "spin_kernel" in name):
+            continue
+        for sp in spans:
+            i = bisect.bisect_right(starts[sp], start) - 1
+            if i < 0:
+                continue
+            a, b = ranges[sp][i]
+            if on_host:
+                if e.end_ns() <= b:
+                    out[sp][i][name] += 1
+            elif start <= b:
+                out[sp][i]["kernel_ms"] += e.duration_ns() / 1e6
+                out[sp][i]["h2d_copies"] += "HtoD" in name
+    return out
+
+
+def cli_yaml(root: str, model: str, epochs: int) -> str:
+    """The built-in recipe of ``model`` cut to ``epochs`` epochs, with
+    init_epoch 2 and epoch_step 2 (phase 11's cut), as a YAML for --config."""
+    import yaml
+
+    from druglamp_tpu_torch.config import builtin_config_path
+
+    with open(builtin_config_path(model)) as f:
+        tree = yaml.safe_load(f)
+    tree["SOLVER"]["MAX_EPOCH"] = epochs
+    tree["RS"].update(INIT_EPOCH=2, EPOCH_STEP=2)
+    path = os.path.join(root, f"{model}_{epochs}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(tree, f)
+    return path
+
+
+@contextlib.contextmanager
+def epoch_hooks(torch, log):
+    """Time each epoch the Trainer runs (any transport): its call by CUDA
+    events, the host time until its results are read back (the time to
+    issue it), peak device memory, and the host → device bytes its data path
+    hands to ``to_device``; each epoch inside a ``chip_smoke.epoch`` range."""
+    from druglamp_tpu_torch.train import steps
+    from druglamp_tpu_torch.train import trainer as trainer_mod
+
+    Trainer = trainer_mod.Trainer
+    saved = {n: getattr(Trainer, n) for n in ("_fit_epoch_loop", "_fit_epoch_scan",
+                                               "_fit_epoch_gather", "_read_epoch")}
+    saved_to = (steps.to_device, trainer_mod.to_device)
+    cur = {}
+
+    def counting_to_device(batch, device, keep=None):
+        if device.type == "cuda":
+            def add(v):
+                if not isinstance(v, torch.Tensor) or v.device.type == "cpu":
+                    cur["h2d"] = cur.get("h2d", 0) + getattr(v, "nbytes", 0)
+            steps.tree_map(add, batch)
+        return saved_to[0](batch, device, keep)
+
+    def timed(name):
+        fn = saved[name]
+
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cur.clear()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("chip_smoke.epoch"):
+                out = fn(self, *args, **kwargs)
+            end.record()
+            end.synchronize()
+            log.append({"transport": self.transport, "ms": start.elapsed_time(end),
+                        "issue_ms": (cur.get("read", time.perf_counter()) - t0) * 1e3,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "h2d_issued": cur.get("h2d", 0), "steps": out[1]})
+            return out
+        return run
+
+    def read_epoch(self, *args, **kwargs):
+        cur["read"] = time.perf_counter()
+        return saved["_read_epoch"](self, *args, **kwargs)
+
+    for n in ("_fit_epoch_loop", "_fit_epoch_scan", "_fit_epoch_gather"):
+        setattr(Trainer, n, timed(n))
+    Trainer._read_epoch = read_epoch
+    steps.to_device = trainer_mod.to_device = counting_to_device
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(Trainer, n, fn)
+        steps.to_device, trainer_mod.to_device = saved_to
+
+
+CLI_PER_STEP = {"paired_attention_fwd": 4, "self_attention_fwd": 2,
+                "paired_attention_bwd": 4, "self_attention_bwd": 2, "gcn_packed_matmul": 3}
+CLI_PER_EVAL_BATCH = {"paired_attention_fwd": 4, "self_attention_fwd": 2, "gcn_packed_matmul": 3}
+
+
+def cli_run(torch, attention, gcn, label, argv, cwd):
+    """One in-process call of ``druglamp_tpu_torch.cli.main.main(argv)``
+    (working directory ``cwd``), profiled: → (rc, its epochs' log, launches,
+    the per-range stats of its epochs and host loops, wall seconds)."""
+    from druglamp_tpu_torch.cli import main as cli
+
+    log = []
+    reset_counts(attention, gcn)
+    here = os.getcwd()
+    t0 = time.perf_counter()
+    os.chdir(cwd)
+    try:
+        with epoch_hooks(torch, log), profiling(torch, cpu=True) as prof:
+            rc = cli.main(argv)
+    finally:
+        os.chdir(here)
+    wall = time.perf_counter() - t0
+    launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    stats = span_stats(torch, prof, ("chip_smoke.epoch",) + HOST_LOOPS,
+                       HOST_WAITS + HOST_READS)
+    print(f"  ({label}: {wall:.1f} s with the profiler on, rc {rc}; launches {launches})",
+          flush=True)
+    return rc, log, launches, stats
+
+
+def check_host_loops(label, stats) -> None:
+    """No host wait and no host read inside any host loop range."""
+    for span in HOST_LOOPS:
+        bad = [{k: c[k] for k in HOST_WAITS + HOST_READS if c[k]} for c in stats[span]]
+        print(f"  {label}: {len(stats[span])} {span} ranges, host waits / reads inside "
+              f"them {sum(len(b) > 0 for b in bad)} ranges with any "
+              f"({[b for b in bad if b][:3]})", flush=True)
+        if any(bad):
+            fail(f"{label} waits for or reads from the card inside {span}: {bad}")
+
+
+def print_epochs(label, records, log, stats, batch_size) -> None:
+    """Each epoch: gates, losses, validation AUSum, and its time (CUDA events,
+    under the profiler), pairs/s, host issue time, kernel time (busy share),
+    host → device bytes (those the data path hands to ``to_device``) in the
+    copies the profiler recorded, and peak device memory."""
+    for r, e, st in zip(records, log, stats["chip_smoke.epoch"]):
+        gates = "+".join(g for g, k in (("cls", "train_loss"), ("ssl", "ssl_loss"),
+                                        ("cm", "cm_loss")) if k in r)
+        print(f"  {label} epoch {r['epoch']} ({gates}, {e['transport']}, {e['steps']} steps): "
+              f"losses {[round(r[k], 5) for k in ('train_loss', 'ssl_loss', 'cm_loss') if k in r]}"
+              f", val AUSum {r['val_ausum']:.4f}; {e['ms']:.1f} ms (CUDA events, profiled), "
+              f"{e['steps'] * batch_size / e['ms'] * 1e3:.1f} pairs/s, host issue "
+              f"{e['issue_ms']:.1f} ms, kernel time {st['kernel_ms']:.1f} ms "
+              f"({st['kernel_ms'] / e['ms']:.1%} busy), host->device {e['h2d_issued']} bytes "
+              f"in {st['h2d_copies']} copies, peak {e['peak_gib']:.2f} GiB", flush=True)
+
+
+def same_as_gather(epochs, test, best) -> None:
+    """Run (b) repeats phase 11's fit (the same data, embeddings, weights,
+    recipe and batch order) over the host pipeline in place of the
+    device-resident dataset: its batches are bit-identical and the steps take
+    the generator's draws in one order, so each epoch's losses, CM weight,
+    margin and validation metrics, and with the same best epoch the test
+    metrics, must equal phase 11's exactly."""
+    keys = ("train_loss", "ssl_loss", "cm_loss", "cm_weight", "margin", "val_auroc",
+            "val_auprc", "val_ausum", "val_loss")
+    ref = {r["epoch"]: r for r in FIT_RESULT["epochs"]}
+    differ = [(r["epoch"], k, r[k], ref[r["epoch"]][k]) for r in epochs for k in keys
+              if k in r and r[k] != ref[r["epoch"]].get(k)]
+    if best == FIT_RESULT["best_epoch"]:
+        differ += [(k, test[f"test_{k}"], v) for k, v in FIT_RESULT["test"].items()
+                   if test[f"test_{k}"] != v]
+    print(f"  b against phase 11's fit over the device-resident dataset: epochs "
+          f"{[r['epoch'] for r in epochs]}{' and the test metrics' if best == FIT_RESULT['best_epoch'] else ''}"
+          f", {len(differ)} values differ {differ[:4]}", flush=True)
+    if differ:
+        fail("phase 12 b: the host pipeline's fit differs from the gather fit of phase 11")
+
+
+def cli_checks(torch, attention, gcn):
+    """Phase 12: the training CLI in process, in the JAX CLI's three
+    transports, and --eval-only → the launches of its runs."""
+    import tempfile
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    cfg = Config()
+    total = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root)
+        kw = dict(max_nodes=cfg.drug.max_nodes, max_prot_resis=cfg.protein.max_resis,
+                  seq_len=cfg.protein.seq_len)
+        train = DTIDataset(root, "synthetic", "random", "train.csv", **kw)
+        S = len(train) // cfg.solver.batch_size
+        n_eval = -(-VAL_PAIRS // cfg.solver.eval_batch_size)
+        seed_cache(os.path.join(root, "b", "embed_cache"), train.table, cfg)
+        recipe, wollm = cli_yaml(root, "DrugLAMP2C2P", FIT_EPOCHS), cli_yaml(root, "DrugLAMPwoLLM", 1)
+
+        def argv(model, yaml_path, work, *extra):
+            return ["--model", model, "--data", "synthetic", "--split", "random",
+                    "--data-root", root, "--config", yaml_path, "--work-dir",
+                    os.path.join(root, work), "--seed", str(SEED), "--no-comet", *extra]
+
+        runs = {
+            "a": ("(a) DrugLAMP2C2P, no cache: the host pipeline with zero bf16 LLM arrays",
+                  argv("DrugLAMP2C2P", recipe, "a")),
+            "b": ("(b) DrugLAMP2C2P, a seeded cache, --device-data off: the host pipeline over "
+                  "the ordinal store", argv("DrugLAMP2C2P", recipe, "b", "--device-data", "off")),
+            "c": ("(c) DrugLAMPwoLLM, 1 epoch, --device-data auto: the device-resident dataset",
+                  argv("DrugLAMPwoLLM", wollm, "c", "--device-data", "auto")),
+        }
+        out = {}
+        for key, (label, args) in runs.items():
+            print(f"  {label}", flush=True)
+            rc, log, launches, stats = cli_run(torch, attention, gcn, key, args, root)
+            if rc != 0:
+                fail(f"phase 12 {key}: the CLI returned {rc}")
+            with open(os.path.join(root, key, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            hp = records[0]
+            epochs = [r for r in records if "train_loss" in r]
+            test = next(r for r in records if "test_auroc" in r)
+            want_transport = {"a": "scan", "b": "scan", "c": "gather"}[key]
+            if [e["transport"] for e in log] != [want_transport] * len(epochs):
+                fail(f"phase 12 {key}: epochs ran {[e['transport'] for e in log]}, expected "
+                     f"{want_transport}")
+            if hp["device_data"] != (key == "c"):
+                fail(f"phase 12 {key}: device_data {hp['device_data']}")
+            gates = [("ssl_loss" in r, "cm_loss" in r) for r in epochs]
+            expected = ([(False, False), (True, True), (False, True)] if key != "c"
+                        else [(False, False)])
+            if not epochs or gates != expected[:len(epochs)]:
+                fail(f"phase 12 {key}: the epochs' gates {gates}, expected {expected}")
+            print_epochs(key, epochs, log, stats, cfg.solver.batch_size)
+            check_host_loops(key, stats)
+            values = [r[k] for r in epochs for k in ("train_loss", "ssl_loss", "cm_loss",
+                                                       "val_ausum") if k in r]
+            values += [test[k] for k in ("test_auroc", "test_auprc", "test_loss")]
+            if not all(math.isfinite(v) for v in values):
+                fail(f"phase 12 {key}: non-finite losses or metrics {values}")
+            n = len(epochs)
+            want = {k: v * (S * n + n_eval * (n + 1)) for k, v in CLI_PER_EVAL_BATCH.items()}
+            for k in ("paired_attention_bwd", "self_attention_bwd"):
+                want[k] = CLI_PER_STEP[k] * S * n
+            want["gcn_packed_matmul_bwd"] = S * sum(
+                3 * (1 + ssl + cm) for ssl, cm in gates)      # one GCN backward per loss
+            if launches != want:
+                fail(f"phase 12 {key}: launches {launches}, expected {want}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            best = next(r for r in records if r.get("event") == "done")["best_epoch"]
+            print(f"  {key}: test AUROC {test['test_auroc']:.4f}, AUPRC {test['test_auprc']:.4f}"
+                  f", loss {test['test_loss']:.5f} (best epoch {best})", flush=True)
+            if key == "b":
+                same_as_gather(epochs, test, best)
+            out[key] = test
+
+        print("  (d) --eval-only on (a)'s ckpt_best.pt, --allow-zero-embeddings", flush=True)
+        ckpt = os.path.join(root, "a", "ckpt_best.pt")
+        rc, log, launches, stats = cli_run(
+            torch, attention, gcn, "d",
+            argv("DrugLAMP2C2P", recipe, "a", "--eval-only", "--ckpt", ckpt,
+                 "--allow-zero-embeddings"), root)
+        if rc != 0:
+            fail(f"phase 12 d: the CLI returned {rc}")
+        (rec_dir,) = os.listdir(os.path.join(root, "results"))
+        with open(os.path.join(root, "results", rec_dir, "metrics.jsonl")) as f:
+            record = [json.loads(line) for line in f][1]
+        want = {k: round(v, 5) for k, v in out["a"].items() if k.startswith("test_")}
+        print(f"  d: {record}; (a)'s test metrics {want}", flush=True)
+        if record != want:
+            fail("phase 12 d: --eval-only does not reproduce (a)'s test metrics")
+        check_host_loops("d", stats)
+        want_d = {k: v * n_eval for k, v in CLI_PER_EVAL_BATCH.items()}
+        if {k: v for k, v in launches.items() if v} != want_d:
+            fail(f"phase 12 d: launches {launches}, expected {want_d}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def host_transport_timing(torch) -> None:
+    """``python3 chip_smoke.py --host-transports``: phase 12's runs (a) and
+    (b), unprofiled, with ``--scan-chunk 0`` (one step call per host batch)
+    and ``--scan-chunk 64`` (stacked chunks) in turns 0, 64, 64, 0: each
+    epoch's time (CUDA events) and host issue time, and the wall time of
+    each run's evaluation passes and of the run."""
+    import tempfile
+
+    from druglamp_tpu_torch.cli import main as cli
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+    from druglamp_tpu_torch.train import trainer as trainer_mod
+
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    cfg = Config()
+    Trainer = trainer_mod.Trainer
+    evaluate = Trainer.evaluate
+    evals = []
+
+    def timed_evaluate(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = evaluate(self, *args, **kwargs)
+        evals.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    Trainer.evaluate = timed_evaluate
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            write_dataset(root)
+            train = DTIDataset(root, "synthetic", "random", "train.csv",
+                               max_nodes=cfg.drug.max_nodes, max_prot_resis=cfg.protein.max_resis,
+                               seq_len=cfg.protein.seq_len)
+            seed_cache(os.path.join(root, "cache"), train.table, cfg)
+            recipe = cli_yaml(root, "DrugLAMP2C2P", FIT_EPOCHS)
+            for turn, chunk in enumerate((0, 64, 64, 0)):
+                for key, extra in (("a", ()), ("b", ("--device-data", "off"))):
+                    work = os.path.join(root, f"{key}{turn}")
+                    if key == "b":
+                        os.makedirs(work)
+                        os.symlink(os.path.join(root, "cache"), os.path.join(work, "embed_cache"))
+                    log = []
+                    evals.clear()
+                    t0 = time.perf_counter()
+                    with epoch_hooks(torch, log):
+                        rc = cli.main(["--model", "DrugLAMP2C2P", "--data", "synthetic",
+                                       "--split", "random", "--data-root", root, "--config",
+                                       recipe, "--work-dir", work, "--seed", str(SEED),
+                                       "--no-comet", "--scan-chunk", str(chunk), *extra])
+                    wall = time.perf_counter() - t0
+                    if rc != 0:
+                        fail(f"--host-transports {key} scan-chunk {chunk}: the CLI returned {rc}")
+                    print(f"  turn {turn} ({key}, --scan-chunk {chunk}): epochs "
+                          f"{[(e['transport'], round(e['ms'], 1), round(e['issue_ms'], 1)) for e in log]}"
+                          f" (transport, CUDA-event ms, host issue ms); eval passes "
+                          f"{[round(x, 1) for x in evals]} ms; run {wall:.2f} s", flush=True)
+    finally:
+        Trainer.evaluate = evaluate
 
 
 @contextlib.contextmanager
@@ -2048,6 +2446,11 @@ def main() -> None:
     for D, n_sets in ((64, 2), (128, 1)):
         print(f"  bf16 backward kernels, D={D}, {n_sets} query set(s): "
               f"{attention.bwd_wgmma_occupancy(D, n_sets)}", flush=True)
+    if "--host-transports" in sys.argv[1:]:
+        phase("host transports: per-batch loop against stacked chunks")
+        print(f"  card: {smi}", flush=True)
+        host_transport_timing(torch)
+        return
 
     phase("3 kernels vs plain")
     serve_err = kernel_checks(torch, attention)
@@ -2109,10 +2512,16 @@ def main() -> None:
     phase("11 Trainer.fit (the DrugLAMP2C2P recipe)")
     print(f"  card: {smi}", flush=True)
     fit_launches = fit_checks(torch, attention, gcn, train, val, test, data, emb)
-    for rec in records:        # the launches of the main path, phases 10 and 11 included
+    del train, val, test, data, emb
+
+    phase("12 the training CLI (druglamp_tpu_torch.cli.main)")
+    print(f"  card: {smi}", flush=True)
+    cli_launches = cli_checks(torch, attention, gcn)
+    for rec in records:        # the launches of the main path, phases 10 to 12 included
         keys = ([rec["name"]] if rec["name"] != "gcn_packed_matmul"
                 else ["gcn_packed_matmul", "gcn_packed_matmul_bwd"])
-        rec["launches"] += sum(gate_launches[k] + fit_launches[k] for k in keys)
+        rec["launches"] += sum(gate_launches[k] + fit_launches[k] + cli_launches.get(k, 0)
+                               for k in keys)
     print(f"  device_ms: {len(PROFILE_RETRIES)} timing windows profiled again", flush=True)
 
     print(json.dumps({"kernels": records}))

@@ -1,17 +1,64 @@
 """Frozen-encoder embedding sources (the port's copy of ``ZeroEmbeddings`` and
-``EmbeddingCache`` from ``druglamp_tpu/data/cache.py``).
+``EmbeddingCache`` from ``druglamp_tpu/data/cache.py``), and the host form of
+bf16 arrays.
 
 ``EmbeddingCache`` is a directory of one ``.npy`` per entity, written once by
 the embedding pipeline and loaded once into RAM.  The file names are the JAX
 package's, so a cache written by either package reads in the other.
+
+bf16 on the host: numpy has no bfloat16 of its own, so a bf16 host array is
+a ``uint16`` array of bf16 bit patterns (``bf16_bits``: rounded to nearest
+even, as the JAX package's ``ml_dtypes`` cast rounds), which ``bf16_tensor``
+views as a ``torch.bfloat16`` tensor without a copy.  In the port's batches
+and caches a ``uint16`` array always holds bf16 bits.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+BF16_HOST = np.dtype(np.uint16)      # a bf16 host array's numpy dtype
+
+
+def bf16_bits(arr) -> np.ndarray:
+    """A float array's values as bf16 (round to nearest even), as uint16 bit
+    patterns; an array that already holds bf16 bits passes through."""
+    arr = np.asarray(arr)
+    if arr.dtype == BF16_HOST:
+        return arr
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(BF16_HOST)
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bit patterns → their exact f32 values."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    """uint16 bf16 bit patterns → a CPU ``torch.bfloat16`` tensor over the
+    same memory."""
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16)
+
+
+def host_array(arr, dtype: torch.dtype) -> np.ndarray:
+    """An embedding array in the host form of ``dtype`` (torch.bfloat16 →
+    uint16 bits, torch.float32 → float32)."""
+    arr = np.asarray(arr)
+    if dtype == torch.bfloat16:
+        return bf16_bits(arr)
+    if dtype == torch.float32:
+        return bf16_to_f32(arr) if arr.dtype == BF16_HOST else arr.astype(np.float32, copy=False)
+    raise ValueError(f"unsupported embedding dtype {dtype}: torch.bfloat16 or torch.float32")
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of ``dtype``'s host form."""
+    return BF16_HOST if dtype == torch.bfloat16 else np.dtype(np.float32)
 
 
 class ZeroEmbeddings:
@@ -29,16 +76,21 @@ class ZeroEmbeddings:
 
 
 class EmbeddingCache:
-    """Directory of per-entity .npy arrays, preloaded into RAM."""
+    """Directory of per-entity .npy arrays, preloaded into RAM.  ``dtype``
+    (``torch.bfloat16`` or ``torch.float32``) converts each array once, at
+    load, to its host form (``host_array``), so batch assembly copies with
+    no per-batch cast."""
 
     def __init__(self, cache_dir: str, dataset: str,
-                 n_drug_feature: int = 384, n_prot_feature: int = 640):
+                 n_drug_feature: int = 384, n_prot_feature: int = 640,
+                 dtype: Optional[torch.dtype] = None):
         self.cache_dir = cache_dir
         self.dataset = dataset
         self.n_drug_feature = n_drug_feature
         self.n_prot_feature = n_prot_feature
         self._drug: Dict[int, np.ndarray] = {}
         self._prot: Dict[int, np.ndarray] = {}
+        self._dtype = dtype
 
     def drug_path(self, ordinal: int) -> str:
         return os.path.join(self.cache_dir, f"{self.dataset}_{ordinal}_drug_embedded.npy")
@@ -61,12 +113,16 @@ class EmbeddingCache:
         os.makedirs(self.cache_dir, exist_ok=True)
         np.save(self.prot_path(ordinal), emb.astype(np.float32))
 
+    def _load(self, path: str) -> np.ndarray:
+        arr = np.load(path)
+        return host_array(arr, self._dtype) if self._dtype is not None else arr
+
     def drug(self, ordinal: int) -> np.ndarray:
         if ordinal not in self._drug:
-            self._drug[ordinal] = np.load(self.drug_path(ordinal))
+            self._drug[ordinal] = self._load(self.drug_path(ordinal))
         return self._drug[ordinal]
 
     def prot(self, ordinal: int) -> np.ndarray:
         if ordinal not in self._prot:
-            self._prot[ordinal] = np.load(self.prot_path(ordinal))
+            self._prot[ordinal] = self._load(self.prot_path(ordinal))
         return self._prot[ordinal]

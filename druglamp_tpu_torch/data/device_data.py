@@ -76,6 +76,13 @@ class DeviceDataStore:
         self.device = device
         self._pairs: Dict[int, Dict[str, torch.Tensor]] = {}
 
+    @staticmethod
+    def supports(loader) -> bool:
+        """The gather path feeds compact batches with on-device CM; dense-LLM
+        batches (no ordinal store) and grouped CM stay on the host pipeline."""
+        return (loader.compact and loader.cm_groups <= 1
+                and (not loader.include_llm or loader.emb_ordinals))
+
     @classmethod
     def build(cls, table, max_nodes: int, seq_len: int, include_llm: bool,
               emb_ordinals: bool, device="cuda") -> "DeviceDataStore":

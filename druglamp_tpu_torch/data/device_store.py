@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from druglamp_tpu_torch.data.cache import BF16_HOST, bf16_tensor
 from druglamp_tpu_torch.serve import resolve_device
 
 
@@ -40,7 +41,9 @@ class DeviceEmbeddingStore:
         """Assemble on the host in bf16 (rounded to nearest even, as the JAX
         package's ml_dtypes cast) and upload to ``device``; None when the
         store would exceed ``budget_bytes``.  Rows past an entity's length
-        are zero; longer embeddings are cut to the store's length."""
+        are zero; longer embeddings are cut to the store's length.  A cache
+        in bf16 host form (uint16 bits, ``EmbeddingCache(dtype=torch.bfloat16)``)
+        is taken as it is."""
         dev = resolve_device(device)
         if cls.estimate_bytes(table, cache, max_drug_tokens, max_prot_len) > budget_bytes:
             return None
@@ -49,9 +52,10 @@ class DeviceEmbeddingStore:
             emb = torch.zeros((n, length, width), dtype=torch.bfloat16)
             lens = torch.zeros((n,), dtype=torch.int32)
             for o in range(n):
-                e = get(o)
+                e = np.asarray(get(o))
                 t = min(e.shape[0], length)
-                emb[o, :t] = torch.from_numpy(np.asarray(e[:t], dtype=np.float32))
+                emb[o, :t] = (bf16_tensor(e[:t]) if e.dtype == BF16_HOST
+                              else torch.from_numpy(np.asarray(e[:t], dtype=np.float32)))
                 lens[o] = t
             return emb.to(dev), lens.to(dev)
 

@@ -1,25 +1,46 @@
-"""Batch order and compact batch assembly on the host (the port's copy of the
-part of ``druglamp_tpu/data/loader.py`` that the device-resident transport
-reads), and the CM ground truth of a batch.
+"""Host batch assembly and the background-prefetch loader (the port's copy of
+``druglamp_tpu/data/loader.py``'s compact path), and the CM ground truth of a
+batch.
 
-``BatchLoader`` gives the ``Trainer`` a split's dataset (``ds``), its batch
-size, its number of batches and each epoch's order (``_order``: the seeded
-``RandomState(seed·100003 + epoch)`` permutation, bit-identical to the JAX
-package's), and assembles one compact batch on the host (``first_batch`` /
-``_assemble_compact``; the device gather, ``data/device_data.py``, gives the
-same batch on the device).  A batch carries the drug and protein ordinals
-of its pairs in place of their LLM embeddings, which the step gathers from
-the device store (``data/device_store.py``).  The host-side LLM assembly,
-the dense assembly, prefetch thread, ``epoch`` / ``stacked_epoch``
-iterators and the native packer belong to the host-pipeline slice.
+``BatchLoader`` yields fixed-shape batches, dicts of numpy arrays in the
+compact form (``data/encoding.py``): bit-packed adjacency scattered from the
+edge lists, packed node features, scalar fill starts, labels, ``valid``
+(0 on the rows that pad a short batch with its first row) and the ``cm``
+ground truth.  The frozen LLM embeddings ride in one of two ways:
+
+- ``emb_ordinals``: the drug and protein ordinals of the pairs
+  (``drug_ord``, ``prot_ord``); the step gathers the embeddings from the
+  device store (``data/device_store.py``);
+- else, with ``include_llm``: the embeddings themselves from ``embeddings``
+  (an ``EmbeddingCache`` or ``ZeroEmbeddings``), ``xd`` (B, N, F_d) tail-padded
+  and ``xp_src`` (B, max_prot_resis + 2, F_p) untiled (the device repeats it,
+  ``decode_batch``), with their lengths ``d_ntok`` and ``xp_len``, in the host
+  form of ``llm_dtype`` (bf16: uint16 bit patterns, ``data/cache.py``).
+
+Without ``include_llm`` (DrugLAMPwoLLM) the batch carries ``d_ntok`` alone.
+
+Each epoch's order is the seeded ``RandomState(seed·100003 + epoch)``
+permutation (bit-identical to the JAX package's).  ``epoch`` assembles on a
+worker thread ``prefetch`` batches ahead (the thread never touches the
+device) and, for an unshuffled loader, keeps the batches of its first pass
+while they fit in ``cache_max_bytes``; ``stacked_epoch`` stacks them along a
+leading step axis for ``make_epoch_step``, in chunks of at most
+``STACKED_CHUNK_CAP_BYTES``.
+
+Not ported: the dense assembly (``compact=False``) and its native packer,
+and grouped CM ground truth (``cm_groups > 1``, the multi-GPU slice).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
+from druglamp_tpu_torch.data.cache import ZeroEmbeddings, host_array, host_dtype
 from druglamp_tpu_torch.data.encoding import pack_node_feats
 
 
@@ -57,16 +78,68 @@ def build_cm_arrays(prot_ids, drug_ids, labels) -> Dict[str, np.ndarray]:
             "d_valid": d_valid, "gt": gt}
 
 
+def _fast_zeros(shape, dtype) -> np.ndarray:
+    """np.zeros that stays calloc-lazy whatever the dtype: zero uint8 pages
+    viewed as ``dtype`` (0x0000 is bf16 0.0)."""
+    dt = np.dtype(dtype)
+    n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+    return np.zeros(n, np.uint8).view(dt).reshape(shape)
+
+
+def _batch_nbytes(batch) -> int:
+    return sum(v.nbytes if hasattr(v, "nbytes") else _batch_nbytes(v)
+               for v in batch.values())
+
+
+def _tree_stack(batches: List[Dict]) -> Dict:
+    """Stack a list of (possibly nested) batch dicts along a new axis 0."""
+    out = {}
+    for k, v in batches[0].items():
+        if isinstance(v, dict):
+            out[k] = _tree_stack([b[k] for b in batches])
+        else:
+            out[k] = np.stack([b[k] for b in batches])
+    return out
+
+
 class BatchLoader:
-    """A split's batch order and compact host assembly (module docstring)."""
+    """Epoch iterator yielding fixed-shape numpy batch dicts (module docstring)."""
+
+    # Byte cap of one stacked chunk: batches that carry dense LLM embeddings
+    # (~27 MB each at full width) shrink a chunk to ~19 steps; ordinal and
+    # woLLM batches are ~100× smaller and never reach it.
+    STACKED_CHUNK_CAP_BYTES = 512 << 20
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool,
-                 seed: int = 0):
+                 embeddings=None, seed: int = 0, prefetch: int = 2, include_llm: bool = True,
+                 llm_dtype: Optional[torch.dtype] = None, compact: bool = True,
+                 cache_max_bytes: int = 2 << 30, emb_ordinals: bool = False,
+                 cm_groups: int = 1):
+        if not compact:
+            raise NotImplementedError("the dense batch assembly (compact=False) is not ported; "
+                                      "every entry point of the port takes compact batches")
+        if cm_groups > 1:
+            raise NotImplementedError("grouped CM ground truth (cm_groups > 1) belongs to the "
+                                      "multi-GPU slice")
+        if emb_ordinals and not include_llm:
+            raise ValueError("emb_ordinals requires LLM batches (include_llm)")
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.emb = embeddings if embeddings is not None else ZeroEmbeddings()
         self.seed = seed
+        self.prefetch = prefetch
+        self.include_llm = include_llm
+        self.llm_dtype = torch.bfloat16 if llm_dtype is None else llm_dtype
+        self.compact = compact
+        self.emb_ordinals = emb_ordinals
+        self.cm_groups = cm_groups
+        # unshuffled (eval) loaders assemble the same batches every epoch:
+        # keep the first pass's while they fit in cache_max_bytes
+        self.cache_batches = not shuffle
+        self.cache_max_bytes = cache_max_bytes
+        self._batch_cache: Optional[list] = None
 
     def __len__(self):
         n = len(self.ds)
@@ -83,8 +156,8 @@ class BatchLoader:
         """The compact batch of dataset rows ``idx``: bit-packed adjacency
         (group-64 layout: column c → byte c mod N/8, bit c div N/8) scattered
         from the edge lists, packed node features, scalar fill starts, the
-        CM ground truth and the entity ordinals; a short batch is padded with its first row and
-        ``valid`` masks the padding."""
+        CM ground truth, and the LLM part (module docstring); a short batch
+        is padded with its first row and ``valid`` masks the padding."""
         ds = self.ds
         n_real = len(idx)
         if n_real < self.batch_size:
@@ -105,10 +178,20 @@ class BatchLoader:
             "n_atoms": np.zeros((B,), np.int32),
             "vp": np.zeros((B, L), np.uint8),
             "p_fill_start": np.zeros((B,), np.int32),
+            "d_ntok": np.zeros((B,), np.int32),
             "labels": np.zeros((B,), np.float32),
-            "drug_ord": np.zeros((B,), np.int32),
-            "prot_ord": np.zeros((B,), np.int32),
         }
+        if self.emb_ordinals:
+            batch["drug_ord"] = np.zeros((B,), np.int32)
+            batch["prot_ord"] = np.zeros((B,), np.int32)
+            del batch["d_ntok"]        # gathered on the device from the store's lengths
+        elif self.include_llm:
+            # calloc-backed zeros: ~27 MB a batch at full width, mostly never written
+            dt = host_dtype(self.llm_dtype)
+            batch["xd"] = _fast_zeros((B, N, self.emb.n_drug_feature), dt)
+            batch["xp_src"] = _fast_zeros((B, ds.max_prot_resis + 2, self.emb.n_prot_feature),
+                                          dt)
+            batch["xp_len"] = np.zeros((B,), np.int32)
 
         for b, i in enumerate(idx):
             dord = int(ds.drug_ords[i])
@@ -125,8 +208,20 @@ class BatchLoader:
             batch["vp"][b] = prec.codes
             batch["p_fill_start"][b] = prec.fill_start
             batch["labels"][b] = ds.labels[i]
-            batch["drug_ord"][b] = dord
-            batch["prot_ord"][b] = pord
+
+            if self.emb_ordinals:
+                batch["drug_ord"][b] = dord
+                batch["prot_ord"][b] = pord
+                continue
+            demb = self.emb.drug(dord)
+            t = min(demb.shape[0], N)
+            batch["d_ntok"][b] = t
+            if self.include_llm:
+                batch["xd"][b, :t] = host_array(demb[:t], self.llm_dtype)
+                pemb = self.emb.prot(pord)
+                lp = min(pemb.shape[0], batch["xp_src"].shape[1])
+                batch["xp_src"][b, :lp] = host_array(pemb[:lp], self.llm_dtype)
+                batch["xp_len"][b] = lp
 
         batch["valid"] = (np.arange(B) < n_real).astype(np.float32)
         batch["cm"] = build_cm_arrays(ds.prot_ords[idx], ds.drug_ords[idx], ds.labels[idx])
@@ -136,5 +231,77 @@ class BatchLoader:
         return batch
 
     def first_batch(self, epoch: int = 0) -> Dict[str, np.ndarray]:
-        """The epoch's first batch, assembled on the host."""
+        """The epoch's first batch, assembled on this thread (no worker is
+        started, none is left parked on a full queue)."""
         return self._assemble_compact(self._order(epoch)[: self.batch_size])
+
+    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        if self.cache_batches and self._batch_cache is not None:
+            yield from self._batch_cache
+            return
+        collected = [] if self.cache_batches else None
+        collected_bytes = 0
+        for batch in self._epoch_uncached(epoch):
+            if collected is not None:
+                collected_bytes += _batch_nbytes(batch)
+                if collected_bytes > self.cache_max_bytes:
+                    collected = None   # over budget: keep streaming, no cache
+                else:
+                    collected.append(batch)
+            yield batch
+        if collected is not None:
+            self._batch_cache = collected
+
+    def stacked_epoch(self, epoch: int, chunk: int) -> Iterator[Dict[str, np.ndarray]]:
+        """The epoch's batches stacked along a new leading step axis, at most
+        ``chunk`` steps a yield, the chunk cut to STACKED_CHUNK_CAP_BYTES by
+        the first batch's size (every full chunk of an epoch has one shape)."""
+        pending: List[Dict] = []
+        eff_chunk = chunk
+        for batch in self.epoch(epoch):
+            if eff_chunk == chunk and not pending:
+                per = _batch_nbytes(batch)
+                if per * chunk > self.STACKED_CHUNK_CAP_BYTES:
+                    eff_chunk = max(1, self.STACKED_CHUNK_CAP_BYTES // per)
+            pending.append(batch)
+            if len(pending) >= eff_chunk:
+                yield _tree_stack(pending)
+                pending = []
+        if pending:
+            yield _tree_stack(pending)
+
+    def _epoch_uncached(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        order = self._order(epoch)
+        n = len(order)
+        bs = self.batch_size
+        stops = range(0, n - bs + 1, bs) if self.drop_last else range(0, n, bs)
+        chunks = [order[s : s + bs] for s in stops]
+
+        if self.prefetch <= 0:
+            for c in chunks:
+                yield self._assemble_compact(c)
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        SENTINEL = object()
+        failed: List[BaseException] = []
+
+        def worker():
+            try:
+                for c in chunks:
+                    q.put(self._assemble_compact(c))
+            except Exception as e:     # raised again on the consuming thread
+                failed.append(e)
+            finally:
+                q.put(SENTINEL)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is SENTINEL:
+                break
+            yield item
+        t.join()
+        if failed:
+            raise failed[0]

@@ -1,10 +1,26 @@
 """Experiment driver: fit → select the best state by validation AUSum → test
-(port of ``druglamp_tpu/train/trainer.py`` over the device-resident
-transport).
+(port of ``druglamp_tpu/train/trainer.py``).
 
     trainer = Trainer(model, cfg, train_loader, val_loader, test_loader,
                       work_dir="results/run", embed_store=emb.tree, device_data=data)
     test_metrics = trainer.run_experiment(seed, resume=False)
+
+The transport, as the JAX package picks it:
+
+- ``device_data`` (a ``DeviceDataStore``): the dataset lives on the device
+  and each epoch ships one (S, B) index plan (``make_epoch_step_gather``,
+  ``make_eval_scan_gather``);
+- else the host pipeline: ``BatchLoader`` assembles the batches on the host
+  (with the LLM embeddings, or with entity ordinals into ``embed_store``),
+  ``_DevicePrefetch`` copies them to the device from pinned memory two
+  ahead, and the steps run one call per batch (``solver.scan_chunk`` ≤ 1:
+  ``make_train_step``, ``make_eval_step``) or one call per stacked chunk of
+  ``scan_chunk`` batches (``make_epoch_step``, ``make_eval_scan``).
+
+All three take the same generator draws in the same order, so on the same
+batch order they follow one trajectory.  Nothing inside an epoch's host loop
+(the profiler range ``trainer.host_epoch``) reads a device value or waits for
+the device; the losses and the CM weight are read once, after the epoch.
 
 Per epoch (1-based, as the reference's ``cur_epoch``):
 
@@ -32,14 +48,13 @@ Per epoch (1-based, as the reference's ``cur_epoch``):
   improvement.
 
 ``run_experiment`` restores ``ckpt_last.pt`` with ``resume=True``, fits,
-then tests on the best state, which the model holds afterwards.  Only the
-device-resident transport is ported (``device_data``, a ``DeviceDataStore``);
-the host pipeline (``BatchLoader``'s batches, ``make_epoch_step``) belongs
-to the host-pipeline slice.
+then tests on the best state, which the model holds afterwards.  The port's
+initial weights need no example batch (``init_state(seed)``).
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import os
 import time
@@ -56,8 +71,60 @@ from druglamp_tpu_torch.nn.inits import init_model
 from druglamp_tpu_torch.serve import resolve_device
 from druglamp_tpu_torch.train.schedule import cosine_warmup_restarts_lr
 from druglamp_tpu_torch.train.state import TrainState
-from druglamp_tpu_torch.train.steps import make_epoch_step_gather, make_eval_scan_gather
+from druglamp_tpu_torch.train.steps import (EpochOutput, make_epoch_step,
+                                            make_epoch_step_gather, make_eval_scan,
+                                            make_eval_scan_gather, make_eval_step,
+                                            make_train_step, to_device)
 from druglamp_tpu_torch.utils.logging import ExperimentLogger
+
+
+class _DevicePrefetch:
+    """Iterate ``(host batch, device batch)`` over host batches, overlapping
+    each batch's copy to the device with the steps: the batch is staged in
+    pinned memory and copied without blocking, ``depth`` batches in flight
+    ahead of the one the caller works on (``store`` rides in the device
+    batch as ``_store``).  Only the calling thread touches the device.  The
+    pinned sources of a batch stay referenced until an event recorded after
+    its copies has passed (polled, never waited on), and the rest until
+    ``release``, which the caller calls once it has read the epoch's results
+    back."""
+
+    def __init__(self, iterator, device: torch.device, store=None, depth: int = 2):
+        self.iterator = iterator
+        self.device = device
+        self.store = store
+        self.depth = depth
+        self._held: collections.deque = collections.deque()
+
+    def __iter__(self):
+        buf: collections.deque = collections.deque()
+        for host in self.iterator:
+            pinned: list = []
+            dev = to_device(host, self.device, pinned)
+            if self.store is not None:
+                dev["_store"] = self.store
+            if pinned:
+                copied = torch.cuda.Event()
+                copied.record()
+                self._held.append((copied, pinned))
+            buf.append((host, dev))
+            while self._held and self._held[0][0].query():
+                self._held.popleft()
+            if len(buf) >= self.depth:
+                yield buf.popleft()
+        while buf:
+            yield buf.popleft()
+
+    def release(self) -> None:
+        self._held.clear()
+
+
+def _cat_epochs(outs) -> EpochOutput:
+    """The chunks of one epoch as one EpochOutput (losses concatenated, the
+    last chunk's CM weight)."""
+    return EpochOutput(outs[-1].state, *(torch.cat([getattr(o, f) for o in outs])
+                                         for f in ("cls_losses", "ssl_losses", "cm_losses")),
+                       outs[-1].cm_weight, outs[-1].generator)
 
 
 class Trainer:
@@ -65,10 +132,6 @@ class Trainer:
                  test_loader, logger: Optional[ExperimentLogger] = None,
                  work_dir: str = "results/run", embed_store: Optional[Dict[str, Any]] = None,
                  device_data=None, device="cuda"):
-        if device_data is None:
-            raise NotImplementedError("training without the device-resident dataset (the host "
-                                      "pipeline: BatchLoader's batches, make_epoch_step) "
-                                      "belongs to the host-pipeline slice")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -89,6 +152,7 @@ class Trainer:
         self.n_class = cfg.decoder.binary
         self.margin_sched = MarginSchedule(m_ori=cfg.rs.max_margin, n_epoch=self.epochs,
                                            n_re=cfg.rs.reset_epoch)
+        self.scan_chunk = s.scan_chunk
         self._epoch_fns: Dict[Any, Any] = {}
         self._eval_fn = None
 
@@ -122,14 +186,29 @@ class Trainer:
         self.model.to(self.device)
         return TrainState.create(self.model, self.use_ssl, self.use_cm)
 
+    @property
+    def transport(self) -> str:
+        """``gather`` (device_data), ``scan`` (host, scan_chunk > 1) or ``loop``."""
+        if self.device_data is not None:
+            return "gather"
+        return "scan" if self.scan_chunk > 1 else "loop"
+
     def _epoch_fn(self, compute_ssl: bool, compute_cm: bool, calibrate: bool):
+        """The transport's train driver for one gate combination, built at
+        first use: the epoch drivers, or the per-step function in loop mode."""
         key = (compute_ssl, compute_cm, calibrate)
         if key not in self._epoch_fns:
-            self._epoch_fns[key] = make_epoch_step_gather(
-                self.model, use_ssl=compute_ssl, use_cm=compute_cm,
-                include_llm=self.device_data.include_llm,
-                emb_ordinals=self.device_data.emb_ordinals, calibrate=calibrate,
-                grad_mode=self.cfg.solver.grad_mode, n_class=self.n_class, device=self.device)
+            kw = dict(use_ssl=compute_ssl, use_cm=compute_cm, calibrate=calibrate,
+                      grad_mode=self.cfg.solver.grad_mode, n_class=self.n_class,
+                      device=self.device)
+            if self.transport == "gather":
+                fn = make_epoch_step_gather(self.model, include_llm=self.device_data.include_llm,
+                                            emb_ordinals=self.device_data.emb_ordinals, **kw)
+            elif self.transport == "scan":
+                fn = make_epoch_step(self.model, **kw)
+            else:
+                fn = make_train_step(self.model, **kw)
+            self._epoch_fns[key] = fn
         return self._epoch_fns[key]
 
     # --- fit / evaluate -----------------------------------------------------
@@ -150,9 +229,10 @@ class Trainer:
             margin = self.margin_sched.margin
 
             t0 = time.time()
-            sums, n_batches = self._fit_epoch_gather(state, epoch, seed, compute_ssl,
-                                                     compute_cm, calibrate, lr_cls, lr_ssl,
-                                                     lr_cm, margin)
+            fit_epoch = {"gather": self._fit_epoch_gather, "scan": self._fit_epoch_scan,
+                         "loop": self._fit_epoch_loop}[self.transport]
+            sums, n_batches = fit_epoch(state, epoch, seed, compute_ssl, compute_cm, calibrate,
+                                        lr_cls, lr_ssl, lr_cm, margin)
             if compute_ssl:
                 self.ssl_sched_steps += 1
             if compute_cm:
@@ -201,6 +281,14 @@ class Trainer:
             self._best_dirty = False
         return state
 
+    def _read_epoch(self, out: EpochOutput, compute_cm: bool):
+        """The epoch's (cls, ssl, cm) loss sums, and the CM weight it leaves,
+        read back once."""
+        if compute_cm:
+            self.cm_weight = float(out.cm_weight)
+        return tuple(float(np.sum(x.float().cpu().numpy()))
+                     for x in (out.cls_losses, out.ssl_losses, out.cm_losses))
+
     def _fit_epoch_gather(self, state, epoch, seed, compute_ssl, compute_cm, calibrate,
                           lr_cls, lr_ssl, lr_cm, margin):
         """The epoch in one call of the epoch driver over the training plan;
@@ -212,16 +300,77 @@ class Trainer:
         ones = np.ones(idx.shape, np.float32)
         out = epoch_fn(state, idx, ones, tree, self.embed_store, self._generator(seed, epoch),
                        lr_cls, lr_ssl, lr_cm, margin, self.cm_weight)
-        if compute_cm:
-            self.cm_weight = float(out.cm_weight)
-        sums = tuple(float(np.sum(x.float().cpu().numpy()))
-                     for x in (out.cls_losses, out.ssl_losses, out.cm_losses))
-        return sums, idx.shape[0]
+        return self._read_epoch(out, compute_cm), idx.shape[0]
+
+    def _fit_epoch_host(self, batches, run, compute_cm):
+        """One epoch over the host pipeline: ``run(device batch, cm_weight) →
+        EpochOutput`` for each of ``batches`` as ``_DevicePrefetch`` delivers
+        it, the CM weight carried on the device; the results are read back
+        after the loop."""
+        feed = _DevicePrefetch(batches, self.device, self.embed_store)
+        w = torch.full((), float(self.cm_weight), device=self.device)
+        outs = []
+        with torch.profiler.record_function("trainer.host_epoch"):
+            for _, batch in feed:
+                outs.append(run(batch, w))
+                w = outs[-1].cm_weight
+        if not outs:
+            raise ValueError("the training loader yields no batch")
+        out = _cat_epochs(outs)
+        sums = self._read_epoch(out, compute_cm)
+        feed.release()
+        return sums, out.cls_losses.shape[0]
+
+    def _fit_epoch_loop(self, state, epoch, seed, compute_ssl, compute_cm, calibrate,
+                        lr_cls, lr_ssl, lr_cm, margin):
+        """One call of the train step per host batch (``solver.scan_chunk`` ≤ 1)."""
+        step_fn = self._epoch_fn(compute_ssl, compute_cm, calibrate)
+        gen = self._generator(seed, epoch)
+
+        def run(batch, w):
+            out = step_fn(state, batch, gen, lr_cls, lr_ssl, lr_cm, margin, w)
+            return EpochOutput(state, out.cls_loss[None], out.ssl_loss[None],
+                               out.cm_loss[None], out.cm_weight, gen)
+        return self._fit_epoch_host(self.train_loader.epoch(epoch), run, compute_cm)
+
+    def _fit_epoch_scan(self, state, epoch, seed, compute_ssl, compute_cm, calibrate,
+                        lr_cls, lr_ssl, lr_cm, margin):
+        """One call of ``make_epoch_step`` per stacked chunk of ``scan_chunk``
+        host batches; the same trajectory as the loop."""
+        epoch_fn = self._epoch_fn(compute_ssl, compute_cm, calibrate)
+        gen = self._generator(seed, epoch)
+
+        def run(stacked, w):
+            return epoch_fn(state, stacked, gen, lr_cls, lr_ssl, lr_cm, margin, w)
+        return self._fit_epoch_host(self.train_loader.stacked_epoch(epoch, self.scan_chunk),
+                                    run, compute_cm)
 
     def evaluate(self, state: Optional[TrainState], loader, full: bool) -> Dict[str, float]:
         """AUROC, AUPRC, AUSum (and with ``full`` the threshold metrics) and
-        the mean loss of the model as it stands, over ``loader``'s split in
-        one call of the eval driver (the plan's ragged tail is masked)."""
+        the mean batch loss of the model as it stands, over ``loader``'s
+        split (a ragged tail masked by ``valid``): in one call of the eval
+        driver (gather), or per host batch or stacked chunk."""
+        if self.transport == "gather":
+            return self._evaluate_gather(loader, full)
+        if self._eval_fn is None:
+            self._eval_fn = (make_eval_scan if self.transport == "scan" else make_eval_step)(
+                self.model, n_class=self.n_class, device=self.device)
+        batches = (loader.stacked_epoch(0, self.scan_chunk) if self.transport == "scan"
+                   else loader.epoch(0))
+        feed = _DevicePrefetch(batches, self.device, self.embed_store)
+        pending = []
+        with torch.profiler.record_function("trainer.host_epoch"):
+            for host, batch in feed:
+                probs, losses = self._eval_fn(batch)
+                pending.append((probs, losses.reshape(-1), host["valid"], host["labels"]))
+        probs = np.concatenate([p.float().cpu().numpy().reshape(-1) for p, _, _, _ in pending])
+        losses = np.concatenate([l.float().cpu().numpy() for _, l, _, _ in pending])
+        feed.release()
+        valid = np.concatenate([v.reshape(-1) for _, _, v, _ in pending]).astype(bool)
+        labels = np.concatenate([y.reshape(-1) for _, _, _, y in pending])
+        return self._metrics(probs[valid], labels[valid], losses, full)
+
+    def _evaluate_gather(self, loader, full: bool) -> Dict[str, float]:
         if self._eval_fn is None:
             self._eval_fn = make_eval_scan_gather(
                 self.model, include_llm=self.device_data.include_llm,
@@ -231,10 +380,16 @@ class Trainer:
         idx, valid = eval_index_plan(len(loader.ds), loader.batch_size)
         probs, losses = self._eval_fn(idx, valid, tree, self.embed_store)
         mask = valid.astype(bool)
+        return self._metrics(probs.float().cpu().numpy()[mask], loader.ds.labels[idx[mask]],
+                             losses.float().cpu().numpy(), full)
+
+    @staticmethod
+    def _metrics(probs: np.ndarray, labels: np.ndarray, losses: np.ndarray,
+                 full: bool) -> Dict[str, float]:
         collector = MetricCollector()
-        collector.update(probs.float().cpu().numpy()[mask], loader.ds.labels[idx[mask]])
+        collector.update(probs, labels)
         m = collector.compute(full=full)
-        m["loss"] = float(np.mean(losses.float().cpu().numpy()))
+        m["loss"] = float(np.mean(losses))
         return m
 
     def run_experiment(self, seed: int, resume: bool = False,

@@ -569,29 +569,24 @@ def test_two_f32_full_gate_steps_are_bit_identical(cuda, monkeypatch):
     assert all(torch.equal(s1[k], s2[k]) for k in s1)
 
 
-def test_trainer_resume_is_bit_identical(cuda, tmp_path, monkeypatch):
-    """A short DrugLAMP2C2P Trainer (full width, 64-node graphs, 9×32
-    protein tiles, bf16, packed GCN) over 3 epochs (cls; ssl + cm +
-    calibrate; cm) on the card against one that restores the epoch-2
-    ckpt_last.pt into a model with other weights and trains epoch 3: equal
-    checkpoints, leaf by leaf."""
-    import shutil
-
+def _short_recipe(epochs: int, scan_chunk: int = 64):
+    """The DrugLAMP2C2P recipe at full width with 64-node graphs and 9×32
+    protein tiles, batch 4, init_epoch 2 and epoch_step 2."""
     from druglamp_tpu_torch.config import RSConfig, SolverConfig
-    from druglamp_tpu_torch.data.cache import EmbeddingCache
-    from druglamp_tpu_torch.data.dataset import DTIDataset
-    from druglamp_tpu_torch.data.device_data import DeviceDataStore
-    from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
-    from druglamp_tpu_torch.data.loader import BatchLoader
-    from druglamp_tpu_torch.models.registry import build_model
-    from druglamp_tpu_torch.train.state import TrainState
-    from druglamp_tpu_torch.train.trainer import Trainer
     from druglamp_tpu_torch.utils.synthetic import tiny_config
 
-    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
-    cfg = tiny_config(n_hidden=128, max_nodes=64, site_seq=32,
-                      solver=SolverConfig(max_epoch=3, batch_size=4, ckpt_every=1),
-                      rs=RSConfig(ssl=True, cm=True, init_epoch=2, epoch_step=2))
+    return tiny_config(n_hidden=128, max_nodes=64, site_seq=32,
+                       solver=SolverConfig(max_epoch=epochs, batch_size=4, eval_batch_size=4,
+                                           ckpt_every=1, scan_chunk=scan_chunk),
+                       rs=RSConfig(ssl=True, cm=True, init_epoch=2, epoch_step=2))
+
+
+def _toy_world(tmp_path, cfg):
+    """A CSV dataset of 24 training and 8 + 8 eval pairs and a seeded
+    embedding cache → (train, val, test, cache)."""
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+
     r = np.random.RandomState(0)
     smiles = ["C" * 20, "CCO" * 8, "c1ccccc1" + "CC" * 8, "CN" * 12, "OCC(O)CO" * 3]
     prots = ["".join("ACDEFGHIKLMNPQRSTVWY"[i] for i in r.randint(0, 20, n)) for n in (40, 60, 90)]
@@ -604,11 +599,32 @@ def test_trainer_resume_is_bit_identical(cuda, tmp_path, monkeypatch):
     train = DTIDataset(str(tmp_path), "toy", "random", "train.csv", **kw)
     val = DTIDataset(str(tmp_path), "toy", "random", "val.csv", table=train.table, **kw)
     test = DTIDataset(str(tmp_path), "toy", "random", "test.csv", table=train.table, **kw)
-    cache = EmbeddingCache(str(tmp_path / "emb"), "toy")
+    cache = EmbeddingCache(str(tmp_path / "emb"), "toy", dtype=torch.bfloat16)
     for o in range(train.table.n_drug):
         cache.put_drug(o, r.randn(12, 384))
     for o in range(train.table.n_prot):
         cache.put_prot(o, r.randn(30, 640))
+    return train, val, test, cache
+
+
+def test_trainer_resume_is_bit_identical(cuda, tmp_path, monkeypatch):
+    """A short DrugLAMP2C2P Trainer (full width, 64-node graphs, 9×32
+    protein tiles, bf16, packed GCN) over 3 epochs (cls; ssl + cm +
+    calibrate; cm) on the card against one that restores the epoch-2
+    ckpt_last.pt into a model with other weights and trains epoch 3: equal
+    checkpoints, leaf by leaf."""
+    import shutil
+
+    from druglamp_tpu_torch.data.device_data import DeviceDataStore
+    from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
+    from druglamp_tpu_torch.data.loader import BatchLoader
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    cfg = _short_recipe(3)
+    train, val, test, cache = _toy_world(tmp_path, cfg)
     emb = DeviceEmbeddingStore.build(train.table, cache, max_drug_tokens=64,
                                      max_prot_len=cfg.protein.max_resis + 2).tree
     data = DeviceDataStore.build(train.table, 64, cfg.protein.seq_len, True, True)
@@ -647,3 +663,81 @@ def test_trainer_resume_is_bit_identical(cuda, tmp_path, monkeypatch):
         assert sa and set(sa) == set(sb)
         assert all(torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))
                    for i in sa for k in sa[i])
+
+
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "aten::item", "aten::_local_scalar_dense")
+
+
+def _waits_inside(prof, span: str):
+    """For each host range ``span`` of a profiled run: the count of each of
+    HOST_WAITS among the host calls inside it (the profiler's raw records)."""
+    cpu = torch.autograd.DeviceType.CPU
+    raw = prof.profiler.kineto_results.events()
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in raw
+                    if e.name() == span and e.device_type() == cpu)
+    out = [dict.fromkeys(HOST_WAITS, 0) for _ in ranges]
+    for e in raw:
+        if e.device_type() == cpu and e.name() in HOST_WAITS:
+            for i, (a, b) in enumerate(ranges):
+                if a <= e.start_ns() and e.end_ns() <= b:
+                    out[i][e.name()] += 1
+    return out
+
+
+@pytest.mark.parametrize("scan_chunk", [0, 4])
+def test_host_fed_epochs_on_the_card(cuda, tmp_path, monkeypatch, scan_chunk):
+    """The host pipeline on the card (dense bf16 LLM arrays, the packed GCN):
+    a 2-epoch DrugLAMP2C2P fit (cls; ssl + cm + calibrate), per step loop
+    (scan_chunk 0) and stacked chunks of 4 (6 steps: 4 + 2).  No host wait
+    and no host read inside either epoch's host loop or any eval pass; the
+    kernels' launches are 4/2 attention forwards and backwards and 3 GCN
+    forwards a step, 3 then 9 GCN backwards a step, and 4/2 + 3 an eval batch;
+    the scan fit ends bit-identical to the loop fit (the same batches and
+    draws, deterministic kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from druglamp_tpu_torch.data.loader import BatchLoader
+    from druglamp_tpu_torch.kernels import gcn
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    cfg = _short_recipe(2, scan_chunk)
+    train, val, test, cache = _toy_world(tmp_path, cfg)
+    loaders = (BatchLoader(train, 4, True, True, embeddings=cache, seed=1),
+               BatchLoader(val, 4, False, False, embeddings=cache),
+               BatchLoader(test, 4, False, False, embeddings=cache))
+
+    def fit(work):
+        model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(0))
+        t = Trainer(model, cfg, *loaders, work_dir=str(tmp_path / work))
+        assert t.transport == ("scan" if scan_chunk else "loop")
+        t.patience = 2
+        state = TrainState.create(model, True, True)
+        attention.reset_launch_counts()
+        gcn.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t.fit(state, 7)
+        torch.cuda.synchronize()
+        return t, model, prof, {**attention.LAUNCHES, **gcn.LAUNCHES}
+
+    t, model, prof, launches = fit("run")
+    loops = _waits_inside(prof, "trainer.host_epoch")
+    assert len(loops) == 4                       # two epochs, two validation passes
+    assert all(not any(c.values()) for c in loops), loops
+    S, n_eval = len(loaders[0]), 2 * len(loaders[1])
+    want = {"paired_attention_fwd": 4 * (2 * S + n_eval), "self_attention_fwd": 2 * (2 * S + n_eval),
+            "paired_attention_bwd": 4 * 2 * S, "self_attention_bwd": 2 * 2 * S,
+            "gcn_packed_matmul": 3 * (2 * S + n_eval), "gcn_packed_matmul_bwd": (3 + 9) * S}
+    assert launches == want
+    if scan_chunk:
+        loop_cfg = _short_recipe(2, 0)
+        ref = build_model("DrugLAMP2C2P", loop_cfg, generator=torch.Generator().manual_seed(0))
+        tl = Trainer(ref, loop_cfg, *loaders, work_dir=str(tmp_path / "loop"))
+        tl.patience = 2
+        tl.fit(TrainState.create(ref, True, True), 7)
+        assert tl.cm_weight == t.cm_weight
+        assert all(torch.equal(a, b) for a, b in zip(ref.state_dict().values(),
+                                                     model.state_dict().values()))

@@ -1,5 +1,6 @@
 """The port (druglamp_tpu_torch/) and chip_smoke.py import neither JAX nor
-anything of the JAX package."""
+anything of the JAX package, nor ml_dtypes (the card's machine has none: the
+port's bf16 host arrays are uint16 bit patterns, data/cache.py)."""
 
 import ast
 import os
@@ -10,18 +11,20 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "druglamp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "druglamp_tpu")
 PORT_FILES = sorted((ROOT / "druglamp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-# The modules of the device-resident epoch and the packed GCN kernel, and of
-# the SSL/CM gates and the Trainer (the glob above must reach them).
+# The modules of the device-resident epoch and the packed GCN kernel, of the
+# SSL/CM gates and the Trainer, and of the host pipeline and the training CLI
+# (the glob above must reach them).
 SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py",
                  "data/dataset.py", "data/cache.py", "eval/metrics.py", "train/steps.py",
                  "nn/layers.py", "losses/masking.py", "losses/schedules.py", "models/ssl.py",
                  "models/cm.py", "models/base.py", "models/druglamp.py", "convert.py",
                  "train/state.py", "train/schedule.py", "train/trainer.py",
-                 "utils/logging.py", "config.py", "data/loader.py")
+                 "utils/logging.py", "config.py", "data/loader.py", "cli/main.py",
+                 "cli/sweep.py")
 
 
 def _imported_modules(path):

@@ -269,8 +269,10 @@ def test_dropout_step_is_reproducible_from_its_seed():
 def test_refuses_what_later_slices_port(case):
     """The gates themselves are ported (tests/test_torch_port_ssl_cm.py); what
     stays refused: their per-replica BatchNorm and CM mining (groups > 1, the
-    multi-GPU slice), the Trainer without the device-resident dataset (the
-    host-pipeline slice), and an unknown grad mode."""
+    multi-GPU slice), the Trainer without the device-resident dataset over
+    dense host batches (the host pipeline takes compact batches; the dense
+    assembly is not ported), and an unknown grad mode."""
+    from druglamp_tpu_torch.data.loader import BatchLoader
     from druglamp_tpu_torch.models.cm import CrossModality
     from druglamp_tpu_torch.models.ssl import SSL
     from druglamp_tpu_torch.nn.layers import MaskedBatchNorm
@@ -286,7 +288,8 @@ def test_refuses_what_later_slices_port(case):
         elif case == "grouped_cm":
             CrossModality(16, groups=2)
         elif case == "trainer_without_device_data":
-            Trainer(model, port_config(cfg), None, None, None, device="cpu")
+            Trainer(model, port_config(cfg), BatchLoader(None, 4, True, True, compact=False),
+                    None, None, device="cpu")
         elif case == "grouped_masked_bn":
             MaskedBatchNorm(16, groups=2)
         else:
