@@ -124,7 +124,7 @@ printing its own lines; any failure exits non-zero and prints no result:
    transports the JAX CLI picks: (a) DrugLAMP2C2P, the recipe cut to 3 epochs
    (init_epoch 2, epoch_step 2), no embedding cache, so the host pipeline
    carries zero bf16 LLM arrays ((16, 512, 384) and (16, 1024, 640) a batch,
-   stacked chunks of 18 under the 512 MB cap); (b) the same with a seeded
+   one step call per batch); (b) the same with a seeded
    cache and ``--device-data off``: host batches of entity ordinals into the
    device store; (c) DrugLAMPwoLLM, 1 epoch, ``--device-data auto``: the
    device-resident dataset; (d) ``--eval-only`` on (a)'s ``ckpt_best.pt``
@@ -1955,8 +1955,8 @@ def epoch_hooks(torch, log):
     from druglamp_tpu_torch.train import trainer as trainer_mod
 
     Trainer = trainer_mod.Trainer
-    saved = {n: getattr(Trainer, n) for n in ("_fit_epoch_loop", "_fit_epoch_scan",
-                                               "_fit_epoch_gather", "_read_epoch")}
+    saved = {n: getattr(Trainer, n) for n in ("_fit_epoch_host", "_fit_epoch_gather",
+                                               "_read_epoch")}
     saved_to = (steps.to_device, trainer_mod.to_device)
     cur = {}
 
@@ -1993,7 +1993,7 @@ def epoch_hooks(torch, log):
         cur["read"] = time.perf_counter()
         return saved["_read_epoch"](self, *args, **kwargs)
 
-    for n in ("_fit_epoch_loop", "_fit_epoch_scan", "_fit_epoch_gather"):
+    for n in ("_fit_epoch_host", "_fit_epoch_gather"):
         setattr(Trainer, n, timed(n))
     Trainer._read_epoch = read_epoch
     steps.to_device = trainer_mod.to_device = counting_to_device
@@ -2130,7 +2130,7 @@ def cli_checks(torch, attention, gcn):
             hp = records[0]
             epochs = [r for r in records if "train_loss" in r]
             test = next(r for r in records if "test_auroc" in r)
-            want_transport = {"a": "scan", "b": "scan", "c": "gather"}[key]
+            want_transport = {"a": "host", "b": "host", "c": "gather"}[key]
             if [e["transport"] for e in log] != [want_transport] * len(epochs):
                 fail(f"phase 12 {key}: epochs ran {[e['transport'] for e in log]}, expected "
                      f"{want_transport}")
@@ -2187,65 +2187,6 @@ def cli_checks(torch, attention, gcn):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total
-
-
-def host_transport_timing(torch) -> None:
-    """``python3 chip_smoke.py --host-transports``: phase 12's runs (a) and
-    (b), unprofiled, with ``--scan-chunk 0`` (one step call per host batch)
-    and ``--scan-chunk 64`` (stacked chunks) in turns 0, 64, 64, 0: each
-    epoch's time (CUDA events) and host issue time, and the wall time of
-    each run's evaluation passes and of the run."""
-    import tempfile
-
-    from druglamp_tpu_torch.cli import main as cli
-    from druglamp_tpu_torch.config import Config
-    from druglamp_tpu_torch.data.dataset import DTIDataset
-    from druglamp_tpu_torch.train import trainer as trainer_mod
-
-    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
-    cfg = Config()
-    Trainer = trainer_mod.Trainer
-    evaluate = Trainer.evaluate
-    evals = []
-
-    def timed_evaluate(self, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = evaluate(self, *args, **kwargs)
-        evals.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    Trainer.evaluate = timed_evaluate
-    try:
-        with tempfile.TemporaryDirectory() as root:
-            write_dataset(root)
-            train = DTIDataset(root, "synthetic", "random", "train.csv",
-                               max_nodes=cfg.drug.max_nodes, max_prot_resis=cfg.protein.max_resis,
-                               seq_len=cfg.protein.seq_len)
-            seed_cache(os.path.join(root, "cache"), train.table, cfg)
-            recipe = cli_yaml(root, "DrugLAMP2C2P", FIT_EPOCHS)
-            for turn, chunk in enumerate((0, 64, 64, 0)):
-                for key, extra in (("a", ()), ("b", ("--device-data", "off"))):
-                    work = os.path.join(root, f"{key}{turn}")
-                    if key == "b":
-                        os.makedirs(work)
-                        os.symlink(os.path.join(root, "cache"), os.path.join(work, "embed_cache"))
-                    log = []
-                    evals.clear()
-                    t0 = time.perf_counter()
-                    with epoch_hooks(torch, log):
-                        rc = cli.main(["--model", "DrugLAMP2C2P", "--data", "synthetic",
-                                       "--split", "random", "--data-root", root, "--config",
-                                       recipe, "--work-dir", work, "--seed", str(SEED),
-                                       "--no-comet", "--scan-chunk", str(chunk), *extra])
-                    wall = time.perf_counter() - t0
-                    if rc != 0:
-                        fail(f"--host-transports {key} scan-chunk {chunk}: the CLI returned {rc}")
-                    print(f"  turn {turn} ({key}, --scan-chunk {chunk}): epochs "
-                          f"{[(e['transport'], round(e['ms'], 1), round(e['issue_ms'], 1)) for e in log]}"
-                          f" (transport, CUDA-event ms, host issue ms); eval passes "
-                          f"{[round(x, 1) for x in evals]} ms; run {wall:.2f} s", flush=True)
-    finally:
-        Trainer.evaluate = evaluate
 
 
 @contextlib.contextmanager
@@ -2446,11 +2387,6 @@ def main() -> None:
     for D, n_sets in ((64, 2), (128, 1)):
         print(f"  bf16 backward kernels, D={D}, {n_sets} query set(s): "
               f"{attention.bwd_wgmma_occupancy(D, n_sets)}", flush=True)
-    if "--host-transports" in sys.argv[1:]:
-        phase("host transports: per-batch loop against stacked chunks")
-        print(f"  card: {smi}", flush=True)
-        host_transport_timing(torch)
-        return
 
     phase("3 kernels vs plain")
     serve_err = kernel_checks(torch, attention)

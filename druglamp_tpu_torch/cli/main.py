@@ -71,8 +71,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--grad-mode", type=str, default=None,
                    choices=["per_loss", "legacy_aliased"])
     p.add_argument("--scan-chunk", type=int, default=None,
-                   help="steps per call of the epoch driver over host batches "
-                        "(0 = one call per step)")
+                   help="accepted for the JAX CLI's sake (its lax.scan length); "
+                        "the port runs one step call per host batch whatever it is")
     p.add_argument("--bn-mode", type=str, default=None,
                    choices=["global", "per_replica"],
                    help="BN batch-stat scope under DP (per_replica = "
@@ -214,6 +214,8 @@ def main(argv=None) -> int:
         overrides["solver.bn_mode"] = args.bn_mode
     if args.scan_chunk is not None:
         overrides["solver.scan_chunk"] = args.scan_chunk
+        print("[info] --scan-chunk changes nothing in the port: its host pipeline runs one "
+              "step call per batch", file=sys.stderr)
     if args.compute_dtype:
         overrides["solver.compute_dtype"] = args.compute_dtype
     if args.split in ("cluster", "Tcpi"):
@@ -280,13 +282,13 @@ def main(argv=None) -> int:
     use_ords = store is not None
     train_loader = BatchLoader(train_ds, bs, shuffle=True, drop_last=True,
                                embeddings=embeddings, seed=cfg.solver.seed,
-                               include_llm=needs_llm, compact=True, emb_ordinals=use_ords)
+                               include_llm=needs_llm, emb_ordinals=use_ords)
     val_loader = BatchLoader(val_ds, eval_bs, shuffle=False, drop_last=False,
                              embeddings=embeddings, include_llm=needs_llm,
-                             compact=True, emb_ordinals=use_ords)
+                             emb_ordinals=use_ords)
     test_loader = BatchLoader(test_ds, eval_bs, shuffle=False, drop_last=False,
                               embeddings=embeddings, include_llm=needs_llm,
-                              compact=True, emb_ordinals=use_ords)
+                              emb_ordinals=use_ords)
 
     model = build_model(args.model, cfg, n_drug_feature, n_prot_feature)
 
@@ -355,8 +357,7 @@ def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, dev
         embeddings = ZeroEmbeddings(n_drug_feature, n_prot_feature)
 
     test_loader = BatchLoader(test_ds, cfg.solver.eval_batch_size, shuffle=False,
-                              drop_last=False, embeddings=embeddings, include_llm=needs_llm,
-                              compact=True)
+                              drop_last=False, embeddings=embeddings, include_llm=needs_llm)
     model = build_model(args.model, cfg, n_drug_feature, n_prot_feature)
     trainer = Trainer(model, cfg, test_loader, test_loader, test_loader, work_dir=work_dir,
                       device=device)

@@ -34,31 +34,10 @@ def bf16_bits(arr) -> np.ndarray:
     return t.view(torch.int16).numpy().view(BF16_HOST)
 
 
-def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
-    """uint16 bf16 bit patterns → their exact f32 values."""
-    return (bits.astype(np.uint32) << 16).view(np.float32)
-
-
 def bf16_tensor(bits: np.ndarray) -> torch.Tensor:
     """uint16 bf16 bit patterns → a CPU ``torch.bfloat16`` tensor over the
     same memory."""
     return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16)
-
-
-def host_array(arr, dtype: torch.dtype) -> np.ndarray:
-    """An embedding array in the host form of ``dtype`` (torch.bfloat16 →
-    uint16 bits, torch.float32 → float32)."""
-    arr = np.asarray(arr)
-    if dtype == torch.bfloat16:
-        return bf16_bits(arr)
-    if dtype == torch.float32:
-        return bf16_to_f32(arr) if arr.dtype == BF16_HOST else arr.astype(np.float32, copy=False)
-    raise ValueError(f"unsupported embedding dtype {dtype}: torch.bfloat16 or torch.float32")
-
-
-def host_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy dtype of ``dtype``'s host form."""
-    return BF16_HOST if dtype == torch.bfloat16 else np.dtype(np.float32)
 
 
 class ZeroEmbeddings:
@@ -76,10 +55,10 @@ class ZeroEmbeddings:
 
 
 class EmbeddingCache:
-    """Directory of per-entity .npy arrays, preloaded into RAM.  ``dtype``
-    (``torch.bfloat16`` or ``torch.float32``) converts each array once, at
-    load, to its host form (``host_array``), so batch assembly copies with
-    no per-batch cast."""
+    """Directory of per-entity .npy arrays, preloaded into RAM.  With
+    ``dtype=torch.bfloat16`` each array is converted once, at load, to bf16
+    bits (``bf16_bits``), so batch assembly copies with no per-batch cast;
+    without, the arrays stay as stored (f32)."""
 
     def __init__(self, cache_dir: str, dataset: str,
                  n_drug_feature: int = 384, n_prot_feature: int = 640,
@@ -90,6 +69,8 @@ class EmbeddingCache:
         self.n_prot_feature = n_prot_feature
         self._drug: Dict[int, np.ndarray] = {}
         self._prot: Dict[int, np.ndarray] = {}
+        if dtype not in (None, torch.bfloat16):
+            raise ValueError(f"unsupported embedding dtype {dtype}: None or torch.bfloat16")
         self._dtype = dtype
 
     def drug_path(self, ordinal: int) -> str:
@@ -115,7 +96,7 @@ class EmbeddingCache:
 
     def _load(self, path: str) -> np.ndarray:
         arr = np.load(path)
-        return host_array(arr, self._dtype) if self._dtype is not None else arr
+        return bf16_bits(arr) if self._dtype is not None else arr
 
     def drug(self, ordinal: int) -> np.ndarray:
         if ordinal not in self._drug:

@@ -78,10 +78,10 @@ class DeviceDataStore:
 
     @staticmethod
     def supports(loader) -> bool:
-        """The gather path feeds compact batches with on-device CM; dense-LLM
-        batches (no ordinal store) and grouped CM stay on the host pipeline."""
-        return (loader.compact and loader.cm_groups <= 1
-                and (not loader.include_llm or loader.emb_ordinals))
+        """The gather path feeds woLLM or ordinal batches; batches that carry
+        the LLM arrays themselves (no ordinal store) stay on the host
+        pipeline."""
+        return not loader.include_llm or loader.emb_ordinals
 
     @classmethod
     def build(cls, table, max_nodes: int, seq_len: int, include_llm: bool,

@@ -14,8 +14,8 @@ ground truth.  The frozen LLM embeddings ride in one of two ways:
 - else, with ``include_llm``: the embeddings themselves from ``embeddings``
   (an ``EmbeddingCache`` or ``ZeroEmbeddings``), ``xd`` (B, N, F_d) tail-padded
   and ``xp_src`` (B, max_prot_resis + 2, F_p) untiled (the device repeats it,
-  ``decode_batch``), with their lengths ``d_ntok`` and ``xp_len``, in the host
-  form of ``llm_dtype`` (bf16: uint16 bit patterns, ``data/cache.py``).
+  ``decode_batch``), with their lengths ``d_ntok`` and ``xp_len``, in bf16
+  (uint16 bit patterns, ``data/cache.py``).
 
 Without ``include_llm`` (DrugLAMPwoLLM) the batch carries ``d_ntok`` alone.
 
@@ -23,12 +23,12 @@ Each epoch's order is the seeded ``RandomState(seed·100003 + epoch)``
 permutation (bit-identical to the JAX package's).  ``epoch`` assembles on a
 worker thread ``prefetch`` batches ahead (the thread never touches the
 device) and, for an unshuffled loader, keeps the batches of its first pass
-while they fit in ``cache_max_bytes``; ``stacked_epoch`` stacks them along a
-leading step axis for ``make_epoch_step``, in chunks of at most
-``STACKED_CHUNK_CAP_BYTES``.
+while they fit in ``cache_max_bytes``.
 
-Not ported: the dense assembly (``compact=False``) and its native packer,
-and grouped CM ground truth (``cm_groups > 1``, the multi-GPU slice).
+Not ported: the dense assembly and its native packer, f32 LLM arrays, the
+stacked epoch (the port runs one step call per batch, so nothing takes
+stacked chunks), and grouped CM ground truth (``cm_groups > 1``, the
+multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -38,9 +38,8 @@ import threading
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
-import torch
 
-from druglamp_tpu_torch.data.cache import ZeroEmbeddings, host_array, host_dtype
+from druglamp_tpu_torch.data.cache import BF16_HOST, ZeroEmbeddings, bf16_bits
 from druglamp_tpu_torch.data.encoding import pack_node_feats
 
 
@@ -91,33 +90,13 @@ def _batch_nbytes(batch) -> int:
                for v in batch.values())
 
 
-def _tree_stack(batches: List[Dict]) -> Dict:
-    """Stack a list of (possibly nested) batch dicts along a new axis 0."""
-    out = {}
-    for k, v in batches[0].items():
-        if isinstance(v, dict):
-            out[k] = _tree_stack([b[k] for b in batches])
-        else:
-            out[k] = np.stack([b[k] for b in batches])
-    return out
-
-
 class BatchLoader:
     """Epoch iterator yielding fixed-shape numpy batch dicts (module docstring)."""
 
-    # Byte cap of one stacked chunk: batches that carry dense LLM embeddings
-    # (~27 MB each at full width) shrink a chunk to ~19 steps; ordinal and
-    # woLLM batches are ~100× smaller and never reach it.
-    STACKED_CHUNK_CAP_BYTES = 512 << 20
-
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool,
                  embeddings=None, seed: int = 0, prefetch: int = 2, include_llm: bool = True,
-                 llm_dtype: Optional[torch.dtype] = None, compact: bool = True,
                  cache_max_bytes: int = 2 << 30, emb_ordinals: bool = False,
                  cm_groups: int = 1):
-        if not compact:
-            raise NotImplementedError("the dense batch assembly (compact=False) is not ported; "
-                                      "every entry point of the port takes compact batches")
         if cm_groups > 1:
             raise NotImplementedError("grouped CM ground truth (cm_groups > 1) belongs to the "
                                       "multi-GPU slice")
@@ -131,10 +110,7 @@ class BatchLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.include_llm = include_llm
-        self.llm_dtype = torch.bfloat16 if llm_dtype is None else llm_dtype
-        self.compact = compact
         self.emb_ordinals = emb_ordinals
-        self.cm_groups = cm_groups
         # unshuffled (eval) loaders assemble the same batches every epoch:
         # keep the first pass's while they fit in cache_max_bytes
         self.cache_batches = not shuffle
@@ -187,10 +163,9 @@ class BatchLoader:
             del batch["d_ntok"]        # gathered on the device from the store's lengths
         elif self.include_llm:
             # calloc-backed zeros: ~27 MB a batch at full width, mostly never written
-            dt = host_dtype(self.llm_dtype)
-            batch["xd"] = _fast_zeros((B, N, self.emb.n_drug_feature), dt)
+            batch["xd"] = _fast_zeros((B, N, self.emb.n_drug_feature), BF16_HOST)
             batch["xp_src"] = _fast_zeros((B, ds.max_prot_resis + 2, self.emb.n_prot_feature),
-                                          dt)
+                                          BF16_HOST)
             batch["xp_len"] = np.zeros((B,), np.int32)
 
         for b, i in enumerate(idx):
@@ -217,10 +192,10 @@ class BatchLoader:
             t = min(demb.shape[0], N)
             batch["d_ntok"][b] = t
             if self.include_llm:
-                batch["xd"][b, :t] = host_array(demb[:t], self.llm_dtype)
+                batch["xd"][b, :t] = bf16_bits(demb[:t])
                 pemb = self.emb.prot(pord)
                 lp = min(pemb.shape[0], batch["xp_src"].shape[1])
-                batch["xp_src"][b, :lp] = host_array(pemb[:lp], self.llm_dtype)
+                batch["xp_src"][b, :lp] = bf16_bits(pemb[:lp])
                 batch["xp_len"][b] = lp
 
         batch["valid"] = (np.arange(B) < n_real).astype(np.float32)
@@ -251,24 +226,6 @@ class BatchLoader:
             yield batch
         if collected is not None:
             self._batch_cache = collected
-
-    def stacked_epoch(self, epoch: int, chunk: int) -> Iterator[Dict[str, np.ndarray]]:
-        """The epoch's batches stacked along a new leading step axis, at most
-        ``chunk`` steps a yield, the chunk cut to STACKED_CHUNK_CAP_BYTES by
-        the first batch's size (every full chunk of an epoch has one shape)."""
-        pending: List[Dict] = []
-        eff_chunk = chunk
-        for batch in self.epoch(epoch):
-            if eff_chunk == chunk and not pending:
-                per = _batch_nbytes(batch)
-                if per * chunk > self.STACKED_CHUNK_CAP_BYTES:
-                    eff_chunk = max(1, self.STACKED_CHUNK_CAP_BYTES // per)
-            pending.append(batch)
-            if len(pending) >= eff_chunk:
-                yield _tree_stack(pending)
-                pending = []
-        if pending:
-            yield _tree_stack(pending)
 
     def _epoch_uncached(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         order = self._order(epoch)

@@ -1,17 +1,12 @@
 """Train and eval steps (port of ``druglamp_tpu/train/steps.py``:
 ``_make_step_body`` with every gate, ``make_train_step``, ``make_eval_step``,
-the drivers over host-stacked batches ``make_epoch_step`` and
-``make_eval_scan``, and the device-resident-dataset drivers
-``make_epoch_step_gather`` and ``make_eval_scan_gather``).
+and the device-resident-dataset drivers ``make_epoch_step_gather`` and
+``make_eval_scan_gather``).
 
     step = make_train_step(model, use_ssl=True, use_cm=True, calibrate=True)  # model to cuda
     state = TrainState.create(model, use_ssl=True, use_cm=True)
     out = step(state, batch, generator, lr_cls, lr_ssl, lr_cm, margin, cm_weight)
     # out.cls_loss, out.ssl_loss, out.cm_loss, out.probs, out.cm_weight (device tensors)
-
-    epoch = make_epoch_step(model, True, True, calibrate=True)
-    out = epoch(state, stacked, generator, lr_cls, lr_ssl, lr_cm, margin, cm_weight)
-    probs, losses = make_eval_scan(model)(stacked)     # (S, B), (S,)
 
     epoch = make_epoch_step_gather(model, True, True, include_llm=True, emb_ordinals=True)
     out = epoch(state, idx, valid, data_tree, emb_store, generator, lr_cls, lr_ssl, lr_cm,
@@ -47,22 +42,22 @@ step (only the cls loss reaches PMMA), the GCN backward once for each active
 loss that reaches the GCN tokens.  After the step each parameter's
 ``.grad`` holds the gradient its last optimizer applied.
 
-The epoch drivers run S steps in one call: ``make_epoch_step`` over a chunk
-of host-assembled batches stacked along a leading step axis (the
-``BatchLoader.stacked_epoch`` chunk; an embedding store rides in
-``stacked["_store"]``), ``make_epoch_step_gather`` each step gathering its
-batch from the device-resident dataset by the (S, B) index plan, the chunk's
-LLM embeddings gathered once before the loop.  Both draw each step's dropout
-and MLM masks from the one generator in step order, so the per-step loop,
-the stacked epoch and the gather epoch take the same draws on the same batch
-order.  Input given as numpy goes to the device once, before the loop, from
-pinned memory without a host wait (``to_device``).  The losses and the CM
-weight stay on the device (the weight is carried from step to step as a
-device scalar): nothing inside the loop (the profiler range
-``epoch_step.loop``) reads a value back or waits for the device, the
-calibrating epoch included.
+The epoch driver runs S steps in one call, each gathering its batch from the
+device-resident dataset by the (S, B) index plan, the chunk's LLM embeddings
+gathered once before the loop.  It draws each step's dropout and MLM masks
+from the one generator in step order, as a loop of ``make_train_step``
+calls over host batches does (``Trainer``'s host pipeline), so the two take
+the same draws on the same batch order.  Input given as numpy goes to the
+device once, before the loop, from pinned memory without a host wait
+(``to_device``).  The losses and the CM weight stay on the device (the
+weight is carried from step to step as a device scalar): nothing inside the
+loop (the profiler range ``epoch_step.loop``) reads a value back or waits
+for the device, the calibrating epoch included.
 
-Not ported yet: the flat optimizer, remat and ``make_repeat_step``.
+Not ported: the flat optimizer, remat, ``make_repeat_step``, and the drivers
+over host-stacked batches (``make_epoch_step``, ``make_eval_scan``): they
+exist for ``lax.scan``, and in eager PyTorch a stacked chunk is only a loop
+of the same steps after an extra host copy.
 """
 
 from __future__ import annotations
@@ -261,65 +256,6 @@ def make_train_step(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
     return step
 
 
-def _step_slices(stacked: Dict[str, Any], store) -> Iterator[Dict[str, Any]]:
-    """The S batches of a step-stacked chunk (views of step s), each with the
-    embedding store attached."""
-    S = stacked["labels"].shape[0]
-    for s in range(S):
-        batch = tree_map(lambda v: v[s], stacked)
-        if store is not None:
-            batch["_store"] = store
-        yield batch
-
-
-def _epoch_output(state: TrainState, outs, generator) -> EpochOutput:
-    if not outs:
-        raise ValueError("empty epoch chunk")
-    return EpochOutput(state, torch.stack([o.cls_loss for o in outs]),
-                       torch.stack([o.ssl_loss for o in outs]),
-                       torch.stack([o.cm_loss for o in outs]), outs[-1].cm_weight, generator)
-
-
-def _run_steps(body, state: TrainState, batches, generator, lr_cls, lr_ssl, lr_cm, margin,
-               cm_weight, device: torch.device) -> EpochOutput:
-    """Steps of ``body`` over ``batches`` inside the ``epoch_step.loop``
-    range, the CM weight carried on the device from step to step."""
-    w = (cm_weight if isinstance(cm_weight, torch.Tensor)
-         else torch.full((), float(cm_weight), device=device))
-    outs = []
-    with torch.profiler.record_function("epoch_step.loop"):
-        for batch in batches:
-            outs.append(body(state, batch, generator, lr_cls, lr_ssl, lr_cm, margin, w))
-            w = outs[-1].cm_weight
-    return _epoch_output(state, outs, generator)
-
-
-def make_epoch_step(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool = False,
-                    grad_mode: str = "per_loss", n_class: int = 1,
-                    device="cuda") -> Callable[..., EpochOutput]:
-    """The epoch-chunk driver over host-assembled batches:
-    ``epoch(state, stacked, generator, lr_cls, lr_ssl=0, lr_cm=0, margin=0.5,
-    cm_weight=1.0) → EpochOutput`` runs S train steps, one per step slice of
-    ``stacked`` (``BatchLoader.stacked_epoch``'s chunk, numpy or tensors; an
-    embedding store in ``stacked["_store"]`` rides with every step).  The CM
-    weight goes from each step to the next on the device and the generator
-    draws in step order, so the trajectory is the per-step loop's."""
-    dev = resolve_device(device)
-    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class)
-    model.to(dev)
-
-    def epoch_step(state: TrainState, stacked: Dict[str, Any],
-                   generator: Optional[torch.Generator], lr_cls: float, lr_ssl: float = 0.0,
-                   lr_cm: float = 0.0, margin: float = 0.5, cm_weight=1.0) -> EpochOutput:
-        stacked = dict(stacked)
-        store = stacked.pop("_store", None)
-        stacked = to_device(stacked, dev)
-        return _run_steps(body, state, _step_slices(stacked, store), generator, lr_cls,
-                          lr_ssl, lr_cm, margin, cm_weight, dev)
-
-    return epoch_step
-
-
 # Pre-gathered (S, B, L, F) embeddings above this many bytes fall back to
 # per-step gathers from the store (device-memory safety).
 _PREGATHER_BUDGET = int(os.environ.get("DRUGLAMP_PREGATHER_BUDGET", str(6 << 30)))
@@ -395,8 +331,18 @@ def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, includ
                    cm_weight=1.0) -> EpochOutput:
         batches = _plan_batches(idx, valid, data_tree, emb_store, include_llm, emb_ordinals,
                                 dev)
-        return _run_steps(body, state, batches, generator, lr_cls, lr_ssl, lr_cm, margin,
-                          cm_weight, dev)
+        w = (cm_weight if isinstance(cm_weight, torch.Tensor)
+             else torch.full((), float(cm_weight), device=dev))
+        outs = []
+        with torch.profiler.record_function("epoch_step.loop"):
+            for batch in batches:
+                outs.append(body(state, batch, generator, lr_cls, lr_ssl, lr_cm, margin, w))
+                w = outs[-1].cm_weight
+        if not outs:
+            raise ValueError("empty index plan")
+        return EpochOutput(state, torch.stack([o.cls_loss for o in outs]),
+                           torch.stack([o.ssl_loss for o in outs]),
+                           torch.stack([o.cm_loss for o in outs]), outs[-1].cm_weight, generator)
 
     return epoch_step
 
@@ -439,29 +385,6 @@ def make_eval_step(model: nn.Module, n_class: int = 1,
     return eval_step
 
 
-def _eval_outputs(outs):
-    if not outs:
-        raise ValueError("empty eval chunk")
-    return torch.stack([p for p, _ in outs]), torch.stack([l for _, l in outs])
-
-
-def make_eval_scan(model: nn.Module, n_class: int = 1, device="cuda") -> Callable[..., Any]:
-    """The eval twin of ``make_epoch_step``: ``eval_scan(stacked) → (probs
-    (S, B), losses (S,))`` scores the S step slices of a stacked chunk under
-    ``no_grad``."""
-    dev = resolve_device(device)
-    body = _eval_body(model, n_class)
-    model.to(dev)
-
-    @torch.no_grad()
-    def eval_scan(stacked: Dict[str, Any]):
-        stacked = dict(stacked)
-        store = stacked.pop("_store", None)
-        return _eval_outputs([body(b) for b in _step_slices(to_device(stacked, dev), store)])
-
-    return eval_scan
-
-
 def make_eval_scan_gather(model: nn.Module, include_llm: bool, emb_ordinals: bool,
                           n_class: int = 1, device="cuda") -> Callable[..., Any]:
     """The eval twin of ``make_epoch_step_gather``: ``eval_scan(idx, valid,
@@ -473,7 +396,10 @@ def make_eval_scan_gather(model: nn.Module, include_llm: bool, emb_ordinals: boo
 
     @torch.no_grad()
     def eval_scan(idx, valid, data_tree: Dict[str, torch.Tensor], emb_store):
-        return _eval_outputs([body(batch) for batch in _plan_batches(
-            idx, valid, data_tree, emb_store, include_llm, emb_ordinals, dev)])
+        outs = [body(batch) for batch in _plan_batches(idx, valid, data_tree, emb_store,
+                                                       include_llm, emb_ordinals, dev)]
+        if not outs:
+            raise ValueError("empty index plan")
+        return torch.stack([p for p, _ in outs]), torch.stack([l for _, l in outs])
 
     return eval_scan

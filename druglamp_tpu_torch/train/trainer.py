@@ -13,12 +13,13 @@ The transport, as the JAX package picks it:
 - else the host pipeline: ``BatchLoader`` assembles the batches on the host
   (with the LLM embeddings, or with entity ordinals into ``embed_store``),
   ``_DevicePrefetch`` copies them to the device from pinned memory two
-  ahead, and the steps run one call per batch (``solver.scan_chunk`` ≤ 1:
-  ``make_train_step``, ``make_eval_step``) or one call per stacked chunk of
-  ``scan_chunk`` batches (``make_epoch_step``, ``make_eval_scan``).
+  ahead, and the steps run one call per batch (``make_train_step``,
+  ``make_eval_step``).  The JAX package's stacked chunks
+  (``solver.scan_chunk``) exist for ``lax.scan``; eager PyTorch runs the
+  same steps either way, so the port reads no ``scan_chunk``.
 
-All three take the same generator draws in the same order, so on the same
-batch order they follow one trajectory.  Nothing inside an epoch's host loop
+Both take the same generator draws in the same order, so on the same batch
+order they follow one trajectory.  Nothing inside an epoch's host loop
 (the profiler range ``trainer.host_epoch``) reads a device value or waits for
 the device; the losses and the CM weight are read once, after the epoch.
 
@@ -71,8 +72,7 @@ from druglamp_tpu_torch.nn.inits import init_model
 from druglamp_tpu_torch.serve import resolve_device
 from druglamp_tpu_torch.train.schedule import cosine_warmup_restarts_lr
 from druglamp_tpu_torch.train.state import TrainState
-from druglamp_tpu_torch.train.steps import (EpochOutput, make_epoch_step,
-                                            make_epoch_step_gather, make_eval_scan,
+from druglamp_tpu_torch.train.steps import (EpochOutput, make_epoch_step_gather,
                                             make_eval_scan_gather, make_eval_step,
                                             make_train_step, to_device)
 from druglamp_tpu_torch.utils.logging import ExperimentLogger
@@ -119,14 +119,6 @@ class _DevicePrefetch:
         self._held.clear()
 
 
-def _cat_epochs(outs) -> EpochOutput:
-    """The chunks of one epoch as one EpochOutput (losses concatenated, the
-    last chunk's CM weight)."""
-    return EpochOutput(outs[-1].state, *(torch.cat([getattr(o, f) for o in outs])
-                                         for f in ("cls_losses", "ssl_losses", "cm_losses")),
-                       outs[-1].cm_weight, outs[-1].generator)
-
-
 class Trainer:
     def __init__(self, model: torch.nn.Module, cfg: Config, train_loader, val_loader,
                  test_loader, logger: Optional[ExperimentLogger] = None,
@@ -152,7 +144,6 @@ class Trainer:
         self.n_class = cfg.decoder.binary
         self.margin_sched = MarginSchedule(m_ori=cfg.rs.max_margin, n_epoch=self.epochs,
                                            n_re=cfg.rs.reset_epoch)
-        self.scan_chunk = s.scan_chunk
         self._epoch_fns: Dict[Any, Any] = {}
         self._eval_fn = None
 
@@ -188,14 +179,13 @@ class Trainer:
 
     @property
     def transport(self) -> str:
-        """``gather`` (device_data), ``scan`` (host, scan_chunk > 1) or ``loop``."""
-        if self.device_data is not None:
-            return "gather"
-        return "scan" if self.scan_chunk > 1 else "loop"
+        """``gather`` (device_data) or ``host`` (the host pipeline)."""
+        return "gather" if self.device_data is not None else "host"
 
     def _epoch_fn(self, compute_ssl: bool, compute_cm: bool, calibrate: bool):
         """The transport's train driver for one gate combination, built at
-        first use: the epoch drivers, or the per-step function in loop mode."""
+        first use: the epoch driver, or the per-step function of the host
+        pipeline."""
         key = (compute_ssl, compute_cm, calibrate)
         if key not in self._epoch_fns:
             kw = dict(use_ssl=compute_ssl, use_cm=compute_cm, calibrate=calibrate,
@@ -204,8 +194,6 @@ class Trainer:
             if self.transport == "gather":
                 fn = make_epoch_step_gather(self.model, include_llm=self.device_data.include_llm,
                                             emb_ordinals=self.device_data.emb_ordinals, **kw)
-            elif self.transport == "scan":
-                fn = make_epoch_step(self.model, **kw)
             else:
                 fn = make_train_step(self.model, **kw)
             self._epoch_fns[key] = fn
@@ -229,8 +217,8 @@ class Trainer:
             margin = self.margin_sched.margin
 
             t0 = time.time()
-            fit_epoch = {"gather": self._fit_epoch_gather, "scan": self._fit_epoch_scan,
-                         "loop": self._fit_epoch_loop}[self.transport]
+            fit_epoch = (self._fit_epoch_gather if self.transport == "gather"
+                         else self._fit_epoch_host)
             sums, n_batches = fit_epoch(state, epoch, seed, compute_ssl, compute_cm, calibrate,
                                         lr_cls, lr_ssl, lr_cm, margin)
             if compute_ssl:
@@ -302,69 +290,46 @@ class Trainer:
                        lr_cls, lr_ssl, lr_cm, margin, self.cm_weight)
         return self._read_epoch(out, compute_cm), idx.shape[0]
 
-    def _fit_epoch_host(self, batches, run, compute_cm):
-        """One epoch over the host pipeline: ``run(device batch, cm_weight) →
-        EpochOutput`` for each of ``batches`` as ``_DevicePrefetch`` delivers
-        it, the CM weight carried on the device; the results are read back
-        after the loop."""
-        feed = _DevicePrefetch(batches, self.device, self.embed_store)
+    def _fit_epoch_host(self, state, epoch, seed, compute_ssl, compute_cm, calibrate,
+                        lr_cls, lr_ssl, lr_cm, margin):
+        """One call of the train step per host batch as ``_DevicePrefetch``
+        delivers it, the CM weight carried on the device from step to step;
+        → ((cls, ssl, cm) loss sums, number of steps), read back after the
+        loop."""
+        step_fn = self._epoch_fn(compute_ssl, compute_cm, calibrate)
+        gen = self._generator(seed, epoch)
+        feed = _DevicePrefetch(self.train_loader.epoch(epoch), self.device, self.embed_store)
         w = torch.full((), float(self.cm_weight), device=self.device)
         outs = []
         with torch.profiler.record_function("trainer.host_epoch"):
             for _, batch in feed:
-                outs.append(run(batch, w))
+                outs.append(step_fn(state, batch, gen, lr_cls, lr_ssl, lr_cm, margin, w))
                 w = outs[-1].cm_weight
         if not outs:
             raise ValueError("the training loader yields no batch")
-        out = _cat_epochs(outs)
+        out = EpochOutput(state, *(torch.stack([getattr(o, f) for o in outs])
+                                   for f in ("cls_loss", "ssl_loss", "cm_loss")), w, gen)
         sums = self._read_epoch(out, compute_cm)
         feed.release()
-        return sums, out.cls_losses.shape[0]
-
-    def _fit_epoch_loop(self, state, epoch, seed, compute_ssl, compute_cm, calibrate,
-                        lr_cls, lr_ssl, lr_cm, margin):
-        """One call of the train step per host batch (``solver.scan_chunk`` ≤ 1)."""
-        step_fn = self._epoch_fn(compute_ssl, compute_cm, calibrate)
-        gen = self._generator(seed, epoch)
-
-        def run(batch, w):
-            out = step_fn(state, batch, gen, lr_cls, lr_ssl, lr_cm, margin, w)
-            return EpochOutput(state, out.cls_loss[None], out.ssl_loss[None],
-                               out.cm_loss[None], out.cm_weight, gen)
-        return self._fit_epoch_host(self.train_loader.epoch(epoch), run, compute_cm)
-
-    def _fit_epoch_scan(self, state, epoch, seed, compute_ssl, compute_cm, calibrate,
-                        lr_cls, lr_ssl, lr_cm, margin):
-        """One call of ``make_epoch_step`` per stacked chunk of ``scan_chunk``
-        host batches; the same trajectory as the loop."""
-        epoch_fn = self._epoch_fn(compute_ssl, compute_cm, calibrate)
-        gen = self._generator(seed, epoch)
-
-        def run(stacked, w):
-            return epoch_fn(state, stacked, gen, lr_cls, lr_ssl, lr_cm, margin, w)
-        return self._fit_epoch_host(self.train_loader.stacked_epoch(epoch, self.scan_chunk),
-                                    run, compute_cm)
+        return sums, len(outs)
 
     def evaluate(self, state: Optional[TrainState], loader, full: bool) -> Dict[str, float]:
         """AUROC, AUPRC, AUSum (and with ``full`` the threshold metrics) and
         the mean batch loss of the model as it stands, over ``loader``'s
         split (a ragged tail masked by ``valid``): in one call of the eval
-        driver (gather), or per host batch or stacked chunk."""
+        driver (gather), or one call per host batch."""
         if self.transport == "gather":
             return self._evaluate_gather(loader, full)
         if self._eval_fn is None:
-            self._eval_fn = (make_eval_scan if self.transport == "scan" else make_eval_step)(
-                self.model, n_class=self.n_class, device=self.device)
-        batches = (loader.stacked_epoch(0, self.scan_chunk) if self.transport == "scan"
-                   else loader.epoch(0))
-        feed = _DevicePrefetch(batches, self.device, self.embed_store)
+            self._eval_fn = make_eval_step(self.model, n_class=self.n_class, device=self.device)
+        feed = _DevicePrefetch(loader.epoch(0), self.device, self.embed_store)
         pending = []
         with torch.profiler.record_function("trainer.host_epoch"):
             for host, batch in feed:
                 probs, losses = self._eval_fn(batch)
-                pending.append((probs, losses.reshape(-1), host["valid"], host["labels"]))
+                pending.append((probs, losses, host["valid"], host["labels"]))
         probs = np.concatenate([p.float().cpu().numpy().reshape(-1) for p, _, _, _ in pending])
-        losses = np.concatenate([l.float().cpu().numpy() for _, l, _, _ in pending])
+        losses = np.array([l.float().cpu().numpy() for _, l, _, _ in pending])
         feed.release()
         valid = np.concatenate([v.reshape(-1) for _, _, v, _ in pending]).astype(bool)
         labels = np.concatenate([y.reshape(-1) for _, _, _, y in pending])

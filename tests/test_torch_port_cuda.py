@@ -569,7 +569,7 @@ def test_two_f32_full_gate_steps_are_bit_identical(cuda, monkeypatch):
     assert all(torch.equal(s1[k], s2[k]) for k in s1)
 
 
-def _short_recipe(epochs: int, scan_chunk: int = 64):
+def _short_recipe(epochs: int):
     """The DrugLAMP2C2P recipe at full width with 64-node graphs and 9×32
     protein tiles, batch 4, init_epoch 2 and epoch_step 2."""
     from druglamp_tpu_torch.config import RSConfig, SolverConfig
@@ -577,7 +577,7 @@ def _short_recipe(epochs: int, scan_chunk: int = 64):
 
     return tiny_config(n_hidden=128, max_nodes=64, site_seq=32,
                        solver=SolverConfig(max_epoch=epochs, batch_size=4, eval_batch_size=4,
-                                           ckpt_every=1, scan_chunk=scan_chunk),
+                                           ckpt_every=1),
                        rs=RSConfig(ssl=True, cm=True, init_epoch=2, epoch_step=2))
 
 
@@ -685,18 +685,21 @@ def _waits_inside(prof, span: str):
     return out
 
 
-@pytest.mark.parametrize("scan_chunk", [0, 4])
-def test_host_fed_epochs_on_the_card(cuda, tmp_path, monkeypatch, scan_chunk):
-    """The host pipeline on the card (dense bf16 LLM arrays, the packed GCN):
-    a 2-epoch DrugLAMP2C2P fit (cls; ssl + cm + calibrate), per step loop
-    (scan_chunk 0) and stacked chunks of 4 (6 steps: 4 + 2).  No host wait
-    and no host read inside either epoch's host loop or any eval pass; the
-    kernels' launches are 4/2 attention forwards and backwards and 3 GCN
-    forwards a step, 3 then 9 GCN backwards a step, and 4/2 + 3 an eval batch;
-    the scan fit ends bit-identical to the loop fit (the same batches and
-    draws, deterministic kernels)."""
+@pytest.mark.parametrize("source", ["dense", "ordinals"])
+def test_host_fed_epochs_on_the_card(cuda, tmp_path, monkeypatch, source):
+    """The host pipeline on the card (the packed GCN): a 2-epoch DrugLAMP2C2P
+    fit (cls; ssl + cm + calibrate), one step call per batch, the batches
+    carrying dense bf16 LLM arrays or entity ordinals into the device store.
+    No host wait and no host read inside either epoch's host loop or any
+    eval pass; the kernels' launches are 4/2 attention forwards and
+    backwards and 3 GCN forwards a step, 3 then 9 GCN backwards a step, and
+    4/2 + 3 an eval batch; over ordinals the fit ends bit-identical to the
+    gather fit over the device-resident dataset (the same batches and draws,
+    deterministic kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from druglamp_tpu_torch.data.device_data import DeviceDataStore
+    from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
     from druglamp_tpu_torch.data.loader import BatchLoader
     from druglamp_tpu_torch.kernels import gcn
     from druglamp_tpu_torch.models.registry import build_model
@@ -704,16 +707,20 @@ def test_host_fed_epochs_on_the_card(cuda, tmp_path, monkeypatch, scan_chunk):
     from druglamp_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
-    cfg = _short_recipe(2, scan_chunk)
+    cfg = _short_recipe(2)
     train, val, test, cache = _toy_world(tmp_path, cfg)
-    loaders = (BatchLoader(train, 4, True, True, embeddings=cache, seed=1),
-               BatchLoader(val, 4, False, False, embeddings=cache),
-               BatchLoader(test, 4, False, False, embeddings=cache))
+    ords = source == "ordinals"
+    loaders = (BatchLoader(train, 4, True, True, embeddings=cache, seed=1, emb_ordinals=ords),
+               BatchLoader(val, 4, False, False, embeddings=cache, emb_ordinals=ords),
+               BatchLoader(test, 4, False, False, embeddings=cache, emb_ordinals=ords))
+    emb = (DeviceEmbeddingStore.build(train.table, cache, max_drug_tokens=64,
+                                      max_prot_len=cfg.protein.max_resis + 2).tree
+           if ords else None)
 
-    def fit(work):
+    def fit(work, data=None):
         model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(0))
-        t = Trainer(model, cfg, *loaders, work_dir=str(tmp_path / work))
-        assert t.transport == ("scan" if scan_chunk else "loop")
+        t = Trainer(model, cfg, *loaders, work_dir=str(tmp_path / work), embed_store=emb,
+                    device_data=data)
         t.patience = 2
         state = TrainState.create(model, True, True)
         attention.reset_launch_counts()
@@ -724,6 +731,7 @@ def test_host_fed_epochs_on_the_card(cuda, tmp_path, monkeypatch, scan_chunk):
         return t, model, prof, {**attention.LAUNCHES, **gcn.LAUNCHES}
 
     t, model, prof, launches = fit("run")
+    assert t.transport == "host"
     loops = _waits_inside(prof, "trainer.host_epoch")
     assert len(loops) == 4                       # two epochs, two validation passes
     assert all(not any(c.values()) for c in loops), loops
@@ -732,12 +740,10 @@ def test_host_fed_epochs_on_the_card(cuda, tmp_path, monkeypatch, scan_chunk):
             "paired_attention_bwd": 4 * 2 * S, "self_attention_bwd": 2 * 2 * S,
             "gcn_packed_matmul": 3 * (2 * S + n_eval), "gcn_packed_matmul_bwd": (3 + 9) * S}
     assert launches == want
-    if scan_chunk:
-        loop_cfg = _short_recipe(2, 0)
-        ref = build_model("DrugLAMP2C2P", loop_cfg, generator=torch.Generator().manual_seed(0))
-        tl = Trainer(ref, loop_cfg, *loaders, work_dir=str(tmp_path / "loop"))
-        tl.patience = 2
-        tl.fit(TrainState.create(ref, True, True), 7)
-        assert tl.cm_weight == t.cm_weight
+    if ords:
+        data = DeviceDataStore.build(train.table, 64, cfg.protein.seq_len, True, True)
+        tg, ref, _, _ = fit("gather", data)
+        assert tg.transport == "gather"
+        assert tg.cm_weight == t.cm_weight
         assert all(torch.equal(a, b) for a, b in zip(ref.state_dict().values(),
                                                      model.state_dict().values()))

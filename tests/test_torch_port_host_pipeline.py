@@ -1,26 +1,28 @@
 """The port's host pipeline against the JAX package's, on the CPU at a tiny
 DrugLAMP2C2P (fp32).
 
-- The loader (numpy only, no JAX program): ``BatchLoader``'s batches and
-  ``stacked_epoch``'s chunks are bit-identical to the JAX loader's (the bf16
-  LLM arrays compared as uint16 bit patterns), for LLM arrays from a seeded
-  ``EmbeddingCache`` at real token lengths (converted to bf16 at load, and
-  not), ``ZeroEmbeddings``, woLLM batches and ordinal batches, with a ragged
-  tail; the byte cap of a stacked chunk and the eval loader's batch cache
-  behave as the JAX loader's; ``EmbeddingCache(dtype=torch.bfloat16)`` rounds
-  as ``ml_dtypes`` does, bit for bit, ties, infinities and subnormals
-  included.
+- The loader (numpy only, no JAX program): ``BatchLoader``'s batches are
+  bit-identical to the JAX loader's (the bf16 LLM arrays compared as uint16
+  bit patterns), for LLM arrays from a seeded ``EmbeddingCache`` at real
+  token lengths (converted to bf16 at load, and not), ``ZeroEmbeddings``,
+  woLLM batches and ordinal batches, with a ragged tail; the eval loader's
+  batch cache behaves as the JAX loader's; the prefetch thread yields what
+  the inline assembly yields; ``EmbeddingCache(dtype=torch.bfloat16)``
+  rounds as ``ml_dtypes`` does, bit for bit, ties, infinities and
+  subnormals included.  ``Trainer._DevicePrefetch`` delivers every batch in
+  order at any depth.
 - Zero-length embeddings (``ZeroEmbeddings``: ``d_ntok`` = ``xp_len`` = 0,
   every LLM position fill): the JAX package's forward stays finite on such a
   batch, and the port's gives its scores within 2e-5.
-- Transports, port against port: the per-step loop, the stacked epoch (a
-  ragged last chunk), the host pipeline over the ordinal store and the
-  gather epoch give bit-identical parameters, per-epoch losses, CM weight
-  and validation metrics over a 2-epoch fit with dropout on (the generator's
-  draws come in the same order), and their ``evaluate`` gives the same
-  metrics.
+- Transports, port against port: the host pipeline with the LLM arrays (its
+  batches assembled on the prefetch thread, or inline; ``solver.scan_chunk``
+  64 or 3, which the port does not read), the host pipeline over the ordinal
+  store and the gather epoch give bit-identical parameters, per-epoch
+  losses, CM weight and validation metrics over a 2-epoch fit with dropout
+  on (the generator's draws come in the same order), and their ``evaluate``
+  gives the same metrics.
 - The host-pipeline ``Trainer`` against the JAX package's (``device_data``
-  None, scan mode, LLM arrays from the cache): 2 epochs (cls; ssl + cm +
+  None, the JAX one in scan mode, LLM arrays from the cache): 2 epochs (cls; ssl + cm +
   calibrate), dropout 0, one fixed MLM mask in both, the JAX initial weights
   through ``convert.py``: per-epoch losses and validation AUSum 1e-5, the CM
   weight exact, the test metrics on the best state 1e-5.
@@ -51,12 +53,12 @@ from druglamp_tpu_torch.data.dataset import DTIDataset
 from druglamp_tpu_torch.data.device_data import DeviceDataStore
 from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
 from druglamp_tpu_torch.data.encoding import decode_batch
-from druglamp_tpu_torch.data.loader import BatchLoader, _batch_nbytes
+from druglamp_tpu_torch.data.loader import BatchLoader
 from druglamp_tpu_torch.losses import masking as pmask
 from druglamp_tpu_torch.models.registry import build_model
 from druglamp_tpu_torch.train.state import TrainState
 from druglamp_tpu_torch.train.steps import to_device
-from druglamp_tpu_torch.train.trainer import Trainer
+from druglamp_tpu_torch.train.trainer import Trainer, _DevicePrefetch
 from druglamp_tpu_torch.utils.logging import ExperimentLogger
 from tests.test_torch_port_ssl_cm import _jax_fixed_mask, _port_fixed_mask
 from tests.test_torch_port_trainer import (B, SEED, _cfg, _full_port_config, _records,
@@ -128,10 +130,8 @@ def _assert_batches_equal(got, ref, path=""):
         np.testing.assert_array_equal(got[k], r, err_msg=path + k)
 
 
-# (include_llm, emb_ordinals, f32 LLM arrays): bf16 LLM arrays (the default),
-# f32 LLM arrays (llm_dtype), woLLM, ordinals
-MODES = {"llm": (True, False, False), "llm_f32": (True, False, True),
-         "wollm": (False, False, False), "ordinals": (True, True, False)}
+# (include_llm, emb_ordinals): bf16 LLM arrays, woLLM, ordinals
+MODES = {"llm": (True, False), "wollm": (False, False), "ordinals": (True, True)}
 
 
 # --- the loader ---------------------------------------------------------------------------
@@ -141,15 +141,14 @@ MODES = {"llm": (True, False, False), "llm_f32": (True, False, True),
 def test_loader_batches_are_bit_identical(world, source, mode):
     """Every batch of a shuffled epoch (ragged tail padded) and of the eval
     loader, and the first batch, equal the JAX loader's."""
-    include_llm, ords, f32 = MODES[mode]
+    include_llm, ords = MODES[mode]
     pemb, jemb = _sources(world, source)
     for shuffle, ds, jds in ((True, world["train"], world["jtrain"]),
                              (False, world["val"], world["jval"])):
         kw = dict(shuffle=shuffle, drop_last=False, seed=SEED, include_llm=include_llm,
                   emb_ordinals=ords)
-        pl = BatchLoader(ds, B, embeddings=pemb, llm_dtype=torch.float32 if f32 else None, **kw)
-        jl = JBatchLoader(jds, B, embeddings=jemb, compact=True,
-                          llm_dtype=np.float32 if f32 else None, **kw)
+        pl = BatchLoader(ds, B, embeddings=pemb, **kw)
+        jl = JBatchLoader(jds, B, embeddings=jemb, compact=True, **kw)
         got, ref = list(pl.epoch(3)), list(jl.epoch(3))
         assert len(got) == len(ref) == len(pl) == len(jl)
         assert got[-1]["valid"].sum() < B            # the ragged tail
@@ -157,25 +156,46 @@ def test_loader_batches_are_bit_identical(world, source, mode):
             _assert_batches_equal(g, r)
         _assert_batches_equal(pl.first_batch(2), jl.first_batch(2))
     if include_llm and not ords and source != "zero":
-        assert got[0]["xd"].dtype == (np.float32 if f32 else np.uint16) and got[0]["xd"].any()
+        assert got[0]["xd"].dtype == np.uint16 and got[0]["xd"].any()
 
 
-def test_stacked_epoch_chunks_and_byte_cap(world, monkeypatch):
-    """stacked_epoch: chunks of ``chunk`` steps with a short last one, and
-    under a byte cap of 2.5 batches chunks of 2, each equal to the JAX
-    loader's."""
-    pemb, jemb = _sources(world, "cache_bf16")
-    kw = dict(shuffle=True, drop_last=True, seed=SEED)
-    pl = BatchLoader(world["train"], B, embeddings=pemb, **kw)
-    jl = JBatchLoader(world["jtrain"], B, embeddings=jemb, compact=True, **kw)
-    per = _batch_nbytes(pl.first_batch())
-    for cap, want in ((BatchLoader.STACKED_CHUNK_CAP_BYTES, [3, 1]), (int(2.5 * per), [2, 2])):
-        monkeypatch.setattr(BatchLoader, "STACKED_CHUNK_CAP_BYTES", cap)
-        monkeypatch.setattr(JBatchLoader, "STACKED_CHUNK_CAP_BYTES", cap)
-        got, ref = list(pl.stacked_epoch(1, 3)), list(jl.stacked_epoch(1, 3))
-        assert [c["labels"].shape[0] for c in got] == [c["labels"].shape[0] for c in ref] == want
-        for g, r in zip(got, ref):
-            _assert_batches_equal(g, r)
+@pytest.mark.parametrize("shuffle", [True, False])
+def test_prefetch_thread_matches_inline_assembly(world, shuffle):
+    """``epoch`` with the worker thread (prefetch 2) yields the batches of
+    the inline assembly (prefetch 0) in the same order, and leaves no
+    thread behind."""
+    import threading
+
+    pemb, _ = _sources(world, "cache_bf16")
+    ds = world["train"] if shuffle else world["val"]
+    kw = dict(shuffle=shuffle, drop_last=False, seed=SEED, embeddings=pemb)
+    before = threading.active_count()
+    got = list(BatchLoader(ds, B, prefetch=2, **kw).epoch(4))
+    ref = list(BatchLoader(ds, B, prefetch=0, **kw).epoch(4))
+    assert threading.active_count() == before
+    assert len(got) == len(ref) == -(-len(ds) // B)
+    for g, r in zip(got, ref):
+        _assert_batches_equal(g, r)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_device_prefetch_delivers_every_batch_in_order(world, depth):
+    """``_DevicePrefetch`` at any depth yields each host batch once, in
+    order, beside its device copy, with the embedding store attached."""
+    pemb, _ = _sources(world, "cache_bf16")
+    loader = BatchLoader(world["train"], B, shuffle=True, drop_last=False, seed=SEED,
+                         embeddings=pemb, prefetch=0)
+    store = {"drug_emb": torch.zeros(1)}
+    hosts = list(loader.epoch(1))
+    feed = _DevicePrefetch(iter(hosts), torch.device("cpu"), store, depth=depth)
+    out = list(feed)
+    feed.release()
+    assert [h is g for (h, _), g in zip(out, hosts)] == [True] * len(hosts) == [True] * len(out)
+    for host, dev in out:
+        assert dev["_store"] is store
+        assert torch.equal(dev["labels"], torch.from_numpy(host["labels"]))
+        assert torch.equal(dev["xd"].view(torch.int16),
+                           torch.from_numpy(host["xd"].view(np.int16)))
 
 
 def test_eval_loader_batch_cache(world):
@@ -262,12 +282,12 @@ def _port_fit(world, transport, work, dropout):
     final state on the validation split, through one transport; → (records,
     final parameters, CM weight, evaluate)."""
     cfg = _full_port_config(_cfg(epochs=2, dropout=dropout, lr=1e-3))
-    chunk = {"loop": 0, "scan": 3}.get(transport, 64)
+    chunk = 3 if transport == "scan_chunk" else 64
     cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, scan_chunk=chunk))
     cache = EmbeddingCache(world["cache"], "toy", ND, NP, dtype=torch.bfloat16)
     ords = transport in ("ordinals", "gather")
     loaders = [BatchLoader(ds, B, shuffle=sh, drop_last=sh, embeddings=cache, seed=SEED,
-                           emb_ordinals=ords)
+                           emb_ordinals=ords, prefetch=0 if transport == "no_prefetch" else 2)
                for ds, sh in ((world["train"], True), (world["val"], False),
                               (world["val"], False))]
     store = data = None
@@ -286,8 +306,7 @@ def _port_fit(world, transport, work, dropout):
     log = ExperimentLogger(str(work), transport, quiet=True)
     t = Trainer(model, cfg, *loaders, logger=log, work_dir=str(work / transport),
                 embed_store=store, device_data=data, device="cpu")
-    assert t.transport == ("gather" if transport == "gather" else
-                           "loop" if transport == "loop" else "scan")
+    assert t.transport == ("gather" if transport == "gather" else "host")
     t.patience = 2
     state = TrainState.create(model, True, True)
     t.fit(state, SEED)
@@ -301,17 +320,18 @@ def _port_fit(world, transport, work, dropout):
 def transports(world, tmp_path_factory):
     work = tmp_path_factory.mktemp("transports")
     return {tr: _port_fit(world, tr, work, dropout=0.1)
-            for tr in ("loop", "scan", "ordinals", "gather")}
+            for tr in ("host", "no_prefetch", "scan_chunk", "ordinals", "gather")}
 
 
-@pytest.mark.parametrize("transport", ["scan", "ordinals", "gather"])
+@pytest.mark.parametrize("transport", ["ordinals", "gather", "no_prefetch", "scan_chunk"])
 def test_transports_are_bit_identical(transports, transport):
-    """Against the per-step loop over host batches with the LLM arrays: the
-    stacked epoch (chunks of 3 and 1), the host pipeline over the ordinal
-    store, and the gather epoch on the same order.  The batches are equal
-    bit for bit (the store holds the cache's bf16 rows) and the steps take
-    the generator's draws in one order, so everything is exact."""
-    (rec, params, w, ev), (rrec, rparams, rw, rev) = transports[transport], transports["loop"]
+    """Against the host pipeline with the LLM arrays: the host pipeline over
+    the ordinal store, the gather epoch on the same order, the batches
+    assembled inline (prefetch 0) in place of the worker thread, and
+    ``solver.scan_chunk`` 3 in place of 64.  The batches are equal bit for
+    bit (the store holds the cache's bf16 rows) and the steps take the
+    generator's draws in one order, so everything is exact."""
+    (rec, params, w, ev), (rrec, rparams, rw, rev) = transports[transport], transports["host"]
     assert len(rec) == 2 and "cm_loss" in rec[1] and "ssl_loss" in rec[1]
     assert rec == rrec
     assert w == rw
@@ -323,8 +343,9 @@ def test_transports_are_bit_identical(transports, transport):
 
 @pytest.fixture(scope="module")
 def host_fits(world, pair, tmp_path_factory):
-    """Both packages' host-pipeline Trainers (scan mode, LLM arrays from the
-    bf16 cache) over 2 epochs from the same weights, the mask injected."""
+    """Both packages' host-pipeline Trainers (the JAX one in scan mode, LLM
+    arrays from the bf16 cache) over 2 epochs from the same weights, the
+    mask injected."""
     work = tmp_path_factory.mktemp("host_fits")
     cfg = world["cfg"]
     jmodel, params, stats, pmodel = pair
@@ -353,7 +374,7 @@ def host_fits(world, pair, tmp_path_factory):
         plog = ExperimentLogger(str(work), "port", quiet=True)
         pt = Trainer(copy.deepcopy(pmodel), _full_port_config(cfg), *pl, logger=plog,
                      work_dir=str(work / "port_run"), device="cpu")
-        assert pt.transport == "scan"
+        assert pt.transport == "host"
         pt.patience = 2
         test = pt.run_experiment(SEED, state=TrainState.create(pt.model, True, True))
         out["port"] = {"records": _records(plog.jsonl_path), "best_epoch": pt.best_epoch,

@@ -264,20 +264,18 @@ def test_dropout_step_is_reproducible_from_its_seed():
 
 # --- what the slice refuses ------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["grouped_ssl_bn", "grouped_cm", "trainer_without_device_data",
+@pytest.mark.parametrize("case", ["grouped_ssl_bn", "grouped_cm", "grouped_cm_batches",
                                   "grouped_masked_bn", "grad_mode"])
 def test_refuses_what_later_slices_port(case):
     """The gates themselves are ported (tests/test_torch_port_ssl_cm.py); what
     stays refused: their per-replica BatchNorm and CM mining (groups > 1, the
-    multi-GPU slice), the Trainer without the device-resident dataset over
-    dense host batches (the host pipeline takes compact batches; the dense
-    assembly is not ported), and an unknown grad mode."""
+    multi-GPU slice), also in the host batches' CM ground truth
+    (``BatchLoader(cm_groups=2)``), and an unknown grad mode."""
     from druglamp_tpu_torch.data.loader import BatchLoader
     from druglamp_tpu_torch.models.cm import CrossModality
     from druglamp_tpu_torch.models.ssl import SSL
     from druglamp_tpu_torch.nn.layers import MaskedBatchNorm
     from druglamp_tpu_torch.nn.protein_cnn import ProteinCNN
-    from druglamp_tpu_torch.train.trainer import Trainer
 
     cfg = tiny_cfg()
     model = port_build_model("DrugLAMPwoLLM", port_config(cfg), ND, NP)
@@ -287,9 +285,8 @@ def test_refuses_what_later_slices_port(case):
             SSL(ProteinCNN(16, (16,) * 3), NP, ND, n_hidden=16, bn_groups=2)
         elif case == "grouped_cm":
             CrossModality(16, groups=2)
-        elif case == "trainer_without_device_data":
-            Trainer(model, port_config(cfg), BatchLoader(None, 4, True, True, compact=False),
-                    None, None, device="cpu")
+        elif case == "grouped_cm_batches":
+            BatchLoader(None, 4, True, True, cm_groups=2)
         elif case == "grouped_masked_bn":
             MaskedBatchNorm(16, groups=2)
         else:

@@ -136,7 +136,9 @@ def _world(root, cfg, build):
     train = ds_cls(root, "toy", "random", "train.csv", **kw)
     val = ds_cls(root, "toy", "random", "val.csv", table=train.table, **kw)
     test = ds_cls(root, "toy", "random", "test.csv", table=train.table, **kw)
-    lkw = dict(include_llm=True, emb_ordinals=True, prefetch=0, compact=True)
+    lkw = dict(include_llm=True, emb_ordinals=True, prefetch=0)
+    if loader_cls is JBatchLoader:
+        lkw["compact"] = True
     loaders = (loader_cls(train, B, shuffle=True, drop_last=True, seed=SEED, **lkw),
                loader_cls(val, B, shuffle=False, drop_last=False, **lkw),
                loader_cls(test, B, shuffle=False, drop_last=False, **lkw))
@@ -629,16 +631,14 @@ def test_trainer_runs_on_the_card_unless_asked(tmp_path):
     """The Trainer's device is ``cuda`` unless the caller asks for the CPU: on
     a machine without a card it raises instead of training on the CPU, over
     either transport; without the device-resident dataset it takes the host
-    pipeline (stacked chunks at the default scan_chunk, the per-step loop at
-    0)."""
+    pipeline, one step call per batch whatever ``solver.scan_chunk`` says."""
     cfg = _full_port_config(_cfg())
     model = port_build_model("DrugLAMP2C2P", port_config(_cfg()), ND, NP)
     if not torch.cuda.is_available():
         for data in (object(), None):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 Trainer(model, cfg, None, None, None, work_dir=str(tmp_path), device_data=data)
-    assert Trainer(model, cfg, None, None, None, work_dir=str(tmp_path),
-                   device="cpu").transport == "scan"
-    loop = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, scan_chunk=0))
-    assert Trainer(model, loop, None, None, None, work_dir=str(tmp_path),
-                   device="cpu").transport == "loop"
+    for chunk in (64, 0):
+        c = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, scan_chunk=chunk))
+        assert Trainer(model, c, None, None, None, work_dir=str(tmp_path),
+                       device="cpu").transport == "host"
