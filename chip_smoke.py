@@ -137,6 +137,27 @@ printing its own lines; any failure exits non-zero and prints no result:
    busy share, host → device bytes and peak memory; (d)'s record equals
    (a)'s test metrics.
 
+13. encoders — phase 9's dataset (37 real drugs, 64 proteins of 50–1022
+   residues) through the frozen encoders, f32 in true f32: (a) ESM-2 t30 (30
+   layers, 640 wide, 20 heads, FFN 2560) and ChemBERTa-77M-MTR (3 layers,
+   384 wide, 12 heads, intermediate 464, 515 positions) with seeded weights
+   on the card against the same modules on the CPU (the embedding
+   pipeline's 8 × 1032 batch holding the 1022-residue protein: 1e-4; every
+   drug: 2e-5), two card runs bit-identical, a protein alone against its
+   row in the batch (1e-4); (b1) ``cli.main([... --gen-embed-only --esm-ckpt
+   esm2_t30.pt --n-layer 30])`` from (a)'s ESM-2 weights written here in HF
+   naming (the converter's table; ChemBERTa random init with the regex
+   tokenizer): a finite cache of the right shape for every entity, equal to
+   (a)'s CPU rows within the same tolerances, the sidecar; the same
+   generation again under the profiler (bit-identical caches, each stage's
+   kernel time); (b2) ``--gen-embed`` on the same work dir with phase 12's
+   3-epoch recipe: nothing generated, the gather epochs over the device
+   store, finite losses and test metrics, the five kernels' launches by
+   phase 12's formula, no host wait or read inside a host loop; (c) each
+   stage's seconds, entities/s, real tokens/s, padding share and busy share,
+   peak memory, the card forward's TFLOP/s against its f32 bound, and the
+   training epochs beside phase 12's.
+
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
 if every kernel record came back.
@@ -2005,9 +2026,23 @@ def epoch_hooks(torch, log):
         steps.to_device, trainer_mod.to_device = saved_to
 
 
+CLI_EPOCHS = {}     # phase 12's epochs by run: (epoch, transport, ms), printed in phase 13
 CLI_PER_STEP = {"paired_attention_fwd": 4, "self_attention_fwd": 2,
                 "paired_attention_bwd": 4, "self_attention_bwd": 2, "gcn_packed_matmul": 3}
 CLI_PER_EVAL_BATCH = {"paired_attention_fwd": 4, "self_attention_fwd": 2, "gcn_packed_matmul": 3}
+
+
+def want_launches(gates, S: int, n_eval: int) -> dict:
+    """The launches of a CLI training run whose epochs ran ``gates`` ((ssl,
+    cm) each) at ``S`` steps, with a validation pass of ``n_eval`` batches
+    after each epoch and the test pass: 4/2/4/2 attention and 3 GCN forwards
+    a step, one GCN backward per loss, 4/2 + 3 an eval batch."""
+    n = len(gates)
+    want = {k: v * (S * n + n_eval * (n + 1)) for k, v in CLI_PER_EVAL_BATCH.items()}
+    for k in ("paired_attention_bwd", "self_attention_bwd"):
+        want[k] = CLI_PER_STEP[k] * S * n
+    want["gcn_packed_matmul_bwd"] = S * sum(3 * (1 + ssl + cm) for ssl, cm in gates)
+    return want
 
 
 def cli_run(torch, attention, gcn, label, argv, cwd):
@@ -2142,18 +2177,14 @@ def cli_checks(torch, attention, gcn):
             if not epochs or gates != expected[:len(epochs)]:
                 fail(f"phase 12 {key}: the epochs' gates {gates}, expected {expected}")
             print_epochs(key, epochs, log, stats, cfg.solver.batch_size)
+            CLI_EPOCHS[key] = [(r["epoch"], e["transport"], e["ms"]) for r, e in zip(epochs, log)]
             check_host_loops(key, stats)
             values = [r[k] for r in epochs for k in ("train_loss", "ssl_loss", "cm_loss",
                                                        "val_ausum") if k in r]
             values += [test[k] for k in ("test_auroc", "test_auprc", "test_loss")]
             if not all(math.isfinite(v) for v in values):
                 fail(f"phase 12 {key}: non-finite losses or metrics {values}")
-            n = len(epochs)
-            want = {k: v * (S * n + n_eval * (n + 1)) for k, v in CLI_PER_EVAL_BATCH.items()}
-            for k in ("paired_attention_bwd", "self_attention_bwd"):
-                want[k] = CLI_PER_STEP[k] * S * n
-            want["gcn_packed_matmul_bwd"] = S * sum(
-                3 * (1 + ssl + cm) for ssl, cm in gates)      # one GCN backward per loss
+            want = want_launches(gates, S, n_eval)
             if launches != want:
                 fail(f"phase 12 {key}: launches {launches}, expected {want}")
             for k, v in launches.items():
@@ -2187,6 +2218,300 @@ def cli_checks(torch, attention, gcn):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+# --- phase 13: the frozen encoders ------------------------------------------------------------
+
+ESM_ATOL, CB_ATOL = 1e-4, 2e-5     # card against CPU: 30 layers of reductions in another order
+ENCODER_BATCH = 8                  # generate_embeddings' default batch
+
+
+def encoder_flops(cfg, B: int, L: int) -> float:
+    """Operations of an ESM-2 forward over (B, L) tokens: the projections and
+    FFN (2·(4E² + 2EF) a token a layer) and the attention products (4·L·E a
+    token a layer)."""
+    E, F, n = cfg.embed_dim, cfg.ffn, cfg.num_layers
+    return 2.0 * B * L * n * (4 * E * E + 2 * E * F) + 4.0 * B * n * L * L * E
+
+
+def encoder_forward(torch, model, toks, device):
+    """``model`` on ``toks`` (numpy) on ``device``, f32 in true f32 under
+    inference mode → a CPU tensor."""
+    from druglamp_tpu_torch.utils.numerics import true_f32
+
+    with torch.inference_mode(), true_f32():
+        return model(torch.from_numpy(toks).to(device)).float().cpu()
+
+
+def max_row_err(a, b, lens) -> float:
+    return max((a[r, :n] - b[r, :n]).abs().max().item() for r, n in enumerate(lens))
+
+
+def encoder_module_checks(torch, table):
+    """Phase 13 (a): ESM-2 t30 and ChemBERTa-77M-MTR with seeded weights
+    (``seeded_state``, drawn on the CPU) on the card against the same
+    modules on the CPU, f32.  ESM-2 on the embedding pipeline's batch that
+    holds the 1022-residue protein (8 × 1032), ChemBERTa on every drug in
+    the pipeline's batches (8 × 520) with the regex tokenizer grown from the
+    table, as the CLI's random init builds them.  → (the ESM state, {protein
+    ordinal: CPU row}, {drug ordinal: CPU row})."""
+    from druglamp_tpu_torch.chem.tokenizer import SmilesTokenizer
+    from druglamp_tpu_torch.encoders import embed_pipeline as ep
+    from druglamp_tpu_torch.encoders.chemberta import ChemBERTa, ChemBERTaConfig
+    from druglamp_tpu_torch.encoders.esm2 import (ESM2, ESM_PAD, esm2_config_for_layers,
+                                                  esm_tokenize)
+    from druglamp_tpu_torch.encoders.layers import seeded_state
+    from druglamp_tpu_torch.utils.numerics import true_f32
+
+    cfg = esm2_config_for_layers(30)
+    cpu = ESM2(cfg).eval()
+    state = seeded_state(cpu, SEED)
+    cpu.load_state_dict(state)
+    with torch.device(DEVICE):
+        card = ESM2(cfg).eval()
+    card.load_state_dict(state)
+    import numpy as np
+
+    longest = table.prot2ord[max(table.prot2ord, key=len)]
+    todo = [(o, esm_tokenize(seq, 1022)) for seq, o in table.prot2ord.items()]
+    ords, toks, lens = next(b for b in ep._batched(todo, ENCODER_BATCH, ESM_PAD)
+                            if longest in b[0])
+    t0 = time.perf_counter()
+    ref = encoder_forward(torch, cpu, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    got = [encoder_forward(torch, card, toks, DEVICE) for _ in range(2)]
+    i = ords.index(longest)
+    alone = encoder_forward(torch, card, toks[i:i + 1, :lens[i]], DEVICE)
+    err = max_row_err(got[0], ref, lens)
+    alone_err = (alone[0] - got[0][i, :lens[i]]).abs().max().item()
+    same = torch.equal(got[0], got[1])
+    with torch.inference_mode(), true_f32():
+        dev_toks = torch.from_numpy(toks).to(DEVICE)
+        ms = time_ms(torch, lambda: card(dev_toks), iters=3, reps=3, warmup=1)
+    flops = encoder_flops(cfg, *toks.shape)
+    print(f"  (a) ESM-2 t30 ({cfg.num_layers} layers, {cfg.embed_dim} wide, {cfg.num_heads} heads, "
+          f"FFN {cfg.ffn}), f32, the batch of ordinals {ords} {tuple(toks.shape)} (real lengths "
+          f"{lens}): card vs CPU max |err| {err:.3e} (tolerance {ESM_ATOL:g}); two card runs "
+          f"bit-identical {same}; protein {longest} alone ({lens[i]} tokens) vs its row "
+          f"{alone_err:.3e}; card {ms:.2f} ms a batch (CUDA events, true f32), "
+          f"{flops / 1e12:.3f} TFLOP, {flops / ms / 1e9:.1f} TFLOP/s, bound "
+          f"{flops / PEAK_FLOPS['float32'] * 1e3:.2f} ms (f32, operations); CPU {cpu_s:.1f} s",
+          flush=True)
+    if not same:
+        fail("phase 13 a: two card runs of ESM-2 differ")
+    if not (err <= ESM_ATOL and alone_err <= ESM_ATOL):
+        fail(f"phase 13 a: ESM-2 card vs CPU {err:.3e}, alone vs batch {alone_err:.3e} "
+             f"> {ESM_ATOL:g}")
+    prot_ref = {o: ref[r, :n] for r, (o, n) in enumerate(zip(ords, lens))}
+    del cpu, card, got, dev_toks
+
+    tok = SmilesTokenizer()
+    tok.extend_from_corpus(table.drug2ord)
+    cb_cfg = ChemBERTaConfig(vocab=max(ChemBERTaConfig().vocab, tok.vocab_size))
+    cpu = ChemBERTa(cb_cfg).eval()
+    cpu.load_state_dict(seeded_state(cpu, SEED + 1, dense_std=ep.CHEMBERTA_DENSE_STD))
+    with torch.device(DEVICE):
+        card = ChemBERTa(cb_cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    todo = [(o, np.asarray(tok.encode(smi, max_length=512), np.int32))
+            for smi, o in table.drug2ord.items()]
+    drug_ref, err, same, n_batches = {}, 0.0, True, 0
+    for ords, toks, lens in ep._batched(todo, ENCODER_BATCH, cb_cfg.pad_id, ep._DRUG_BUCKETS):
+        ref = encoder_forward(torch, cpu, toks, "cpu")
+        got = [encoder_forward(torch, card, toks, DEVICE) for _ in range(2)]
+        err, same = max(err, max_row_err(got[0], ref, lens)), same and torch.equal(*got)
+        drug_ref.update({o: ref[r, :n] for r, (o, n) in enumerate(zip(ords, lens))})
+        n_batches += 1
+    print(f"  (a) ChemBERTa-77M-MTR ({cb_cfg.num_layers} layers, {cb_cfg.hidden} wide, "
+          f"{cb_cfg.num_heads} heads, intermediate {cb_cfg.intermediate}, vocab {cb_cfg.vocab}), "
+          f"f32, {len(todo)} drugs in {n_batches} batches of {ENCODER_BATCH} x "
+          f"{ep._DRUG_BUCKETS[0]}: card vs CPU max |err| {err:.3e} (tolerance {CB_ATOL:g}); "
+          f"two card runs bit-identical {same}", flush=True)
+    if not same:
+        fail("phase 13 a: two card runs of ChemBERTa differ")
+    if not err <= CB_ATOL:
+        fail(f"phase 13 a: ChemBERTa card vs CPU {err:.3e} > {CB_ATOL:g}")
+    del cpu, card
+    torch.cuda.empty_cache()
+    return state, prot_ref, drug_ref
+
+
+@contextlib.contextmanager
+def encoder_stages(torch, log):
+    """Each encoder stage of ``generate_embeddings`` (``embed_pipeline._encode``)
+    inside a ``chip_smoke.embed.<stage>`` range, timed from a synchronised
+    start to a synchronised end, with its entity count, real tokens and the
+    padded slots of its batches."""
+    from druglamp_tpu_torch.encoders import embed_pipeline as ep
+
+    real = ep._encode
+
+    def timed(model, todo, batch, pad_id, buckets, dev, put, what, verbose, every):
+        slots = sum(t.size for _, t, _ in ep._batched(todo, batch, pad_id, buckets))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"chip_smoke.embed.{what}"):
+            real(model, todo, batch, pad_id, buckets, dev, put, what, verbose, every)
+        torch.cuda.synchronize()
+        log.append({"stage": what, "s": time.perf_counter() - t0, "n": len(todo),
+                    "tokens": sum(len(ids) for _, ids in todo), "slots": slots})
+
+    ep._encode = timed
+    try:
+        yield
+    finally:
+        ep._encode = real
+
+
+def print_stages(label, stages, stats=None) -> None:
+    for st in stages:
+        line = (f"  {label} {st['stage']} stage: {st['n']} entities in {st['s']:.3f} s, "
+                f"{st['n'] / st['s']:.1f} entities/s, {st['tokens']} real tokens "
+                f"({st['tokens'] / st['s']:.0f} tokens/s), padding share "
+                f"{1 - st['tokens'] / max(st['slots'], 1):.1%} of {st['slots']} slots")
+        if stats is not None:
+            (k,) = stats[f"chip_smoke.embed.{st['stage']}"] or [{"kernel_ms": 0.0}]
+            busy = k["kernel_ms"] / st["s"] / 1e3
+            line += f"; kernel time {k['kernel_ms']:.1f} ms ({busy:.1%} busy)"
+        print(line, flush=True)
+
+
+def encoder_checks(torch, attention, gcn, smi):
+    """Phase 13: (a) the encoders on the card against the CPU; (b) the CLI's
+    --gen-embed-only from an ESM-2 t30 checkpoint in HF naming written here
+    from (a)'s seeded weights (ChemBERTa: random init with the regex
+    tokenizer), then --gen-embed training on those caches; (c) the times →
+    the launches of (b)'s training run."""
+    import tempfile
+
+    import numpy as np
+
+    from druglamp_tpu_torch.cli import main as cli
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+    from druglamp_tpu_torch.encoders import embed_pipeline as ep
+    from druglamp_tpu_torch.encoders.convert import esm2_names
+    from druglamp_tpu_torch.encoders.esm2 import esm2_config_for_layers
+
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root)
+        kw = dict(max_nodes=cfg.drug.max_nodes, max_prot_resis=cfg.protein.max_resis,
+                  seq_len=cfg.protein.seq_len)
+        train = DTIDataset(root, "synthetic", "random", "train.csv", **kw)
+        table = train.table
+        print(f"  phase 9's dataset: {table.n_drug} drugs, {table.n_prot} proteins of "
+              f"{min(map(len, table.prot2ord))}-{max(map(len, table.prot2ord))} residues",
+              flush=True)
+        state, prot_ref, drug_ref = encoder_module_checks(torch, table)
+
+        ckpt = os.path.join(root, "esm2_t30.pt")
+        names = esm2_names(esm2_config_for_layers(30).num_layers)
+        torch.save({hf: state[key] for key, (hf, _) in names.items()}, ckpt)
+        del state
+        recipe = cli_yaml(root, "DrugLAMP2C2P", FIT_EPOCHS)
+        work = os.path.join(root, "e")
+        argv = ["--model", "DrugLAMP2C2P", "--data", "synthetic", "--split", "random",
+                "--data-root", root, "--config", recipe, "--work-dir", work, "--seed", str(SEED),
+                "--no-comet", "--n-layer", "30", "--esm-ckpt", ckpt]
+
+        print("  (b1) --gen-embed-only --esm-ckpt esm2_t30.pt (HF naming), ChemBERTa random "
+              "init with the regex tokenizer", flush=True)
+        stages = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with encoder_stages(torch, stages):
+            rc = cli.main(argv + ["--gen-embed-only"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if rc != 0:
+            fail(f"phase 13 b1: the CLI returned {rc}")
+        cache = EmbeddingCache(os.path.join(work, "embed_cache"), "synthetic", 384, 640)
+        missing = ([o for o in range(table.n_prot) if not cache.has_prot(o)]
+                   + [o for o in range(table.n_drug) if not cache.has_drug(o)])
+        bad_shape = [o for seq, o in table.prot2ord.items()
+                     if cache.prot(o).shape != (min(len(seq), 1022) + 2, 640)]
+        bad_shape += [o for o in range(table.n_drug) if cache.drug(o).shape[1] != 384
+                      or cache.drug(o).shape[0] != drug_ref[o].shape[0]]
+        finite = all(np.isfinite(cache.prot(o)).all() for o in range(table.n_prot)) and all(
+            np.isfinite(cache.drug(o)).all() for o in range(table.n_drug))
+        p_err = max((torch.from_numpy(cache.prot(o)) - r).abs().max().item()
+                    for o, r in prot_ref.items())
+        d_err = max((torch.from_numpy(cache.drug(o)) - r).abs().max().item()
+                    for o, r in drug_ref.items())
+        with open(os.path.join(work, "30_layers_params.txt")) as f:
+            sidecar = f.read()
+        print(f"  b1: rc {rc} in {wall:.1f} s, peak {peak:.2f} GiB; {table.n_prot} protein and "
+              f"{table.n_drug} drug caches, missing {missing}, wrong shapes {bad_shape}, all "
+              f"finite {finite}; the cached rows of (a)'s ESM batch vs (a)'s CPU forward "
+              f"{p_err:.3e} (tolerance {ESM_ATOL:g}), every drug's vs (a)'s CPU forward "
+              f"{d_err:.3e} (tolerance {CB_ATOL:g}); sidecar {sidecar!r}", flush=True)
+        print_stages("b1", stages)
+        if missing or bad_shape or not finite:
+            fail("phase 13 b1: the caches are incomplete, misshapen or not finite")
+        if not (p_err <= ESM_ATOL and d_err <= CB_ATOL):
+            fail(f"phase 13 b1: caches vs (a)'s CPU forwards {p_err:.3e} / {d_err:.3e}")
+        if sidecar != "384\t640\n":
+            fail(f"phase 13 b1: sidecar {sidecar!r}")
+
+        prof_stages = []
+        again = EmbeddingCache(os.path.join(root, "again"), "synthetic", 384, 640)
+        with encoder_stages(torch, prof_stages), profiling(torch, cpu=True) as prof:
+            ep.generate_embeddings(table, again, n_layer=30, esm_ckpt=ckpt, verbose=False,
+                                   device=DEVICE)
+        stats = span_stats(torch, prof, tuple(f"chip_smoke.embed.{s['stage']}"
+                                              for s in prof_stages), ())
+        print("  the same generation again, profiled:", flush=True)
+        print_stages("profiled", prof_stages, stats)
+        differ = [o for o in range(table.n_prot)
+                  if not np.array_equal(again.prot(o), cache.prot(o))]
+        differ += [o for o in range(table.n_drug)
+                   if not np.array_equal(again.drug(o), cache.drug(o))]
+        print(f"  profiled run's caches against b1's: {len(differ)} entities differ", flush=True)
+        if differ:
+            fail(f"phase 13: a second generation differs for ordinals {differ[:5]}")
+
+        print("  (b2) --gen-embed on the same work dir, the recipe cut to 3 epochs", flush=True)
+        stages = []
+        with encoder_stages(torch, stages):
+            rc, log, launches, stats = cli_run(torch, attention, gcn, "b2", argv + ["--gen-embed"],
+                                               root)
+        if rc != 0:
+            fail(f"phase 13 b2: the CLI returned {rc}")
+        if any(st["n"] for st in stages):
+            fail(f"phase 13 b2: generated {[(st['stage'], st['n']) for st in stages]}, "
+                 f"expected nothing")
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        epochs = [r for r in records if "train_loss" in r]
+        test = next(r for r in records if "test_auroc" in r)
+        gates = [("ssl_loss" in r, "cm_loss" in r) for r in epochs]
+        expected = [(False, False), (True, True), (False, True)]
+        if not epochs or gates != expected[:len(epochs)]:
+            fail(f"phase 13 b2: the epochs' gates {gates}")
+        if ([e["transport"] for e in log] != ["gather"] * len(epochs)
+                or not records[0]["device_data"]):
+            fail(f"phase 13 b2: epochs ran {[e['transport'] for e in log]}, expected gather")
+        print_epochs("b2", epochs, log, stats, cfg.solver.batch_size)
+        for r in epochs:
+            beside = [(k, t, ms) for k, runs in CLI_EPOCHS.items() for e, t, ms in runs
+                      if e == r["epoch"]]
+            print(f"  b2 epoch {r['epoch']} beside phase 12's (run, transport, ms by CUDA events "
+                  f"under the profiler): {beside}", flush=True)
+        check_host_loops("b2", stats)
+        values = [r[k] for r in epochs for k in ("train_loss", "ssl_loss", "cm_loss", "val_ausum")
+                  if k in r] + [test[k] for k in ("test_auroc", "test_auprc", "test_loss")]
+        if not all(math.isfinite(v) for v in values):
+            fail(f"phase 13 b2: non-finite losses or metrics {values}")
+        S = len(train) // cfg.solver.batch_size
+        want = want_launches(gates, S, -(-VAL_PAIRS // cfg.solver.eval_batch_size))
+        if launches != want:
+            fail(f"phase 13 b2: launches {launches}, expected {want}")
+        print(f"  b2: test AUROC {test['test_auroc']:.4f}, AUPRC {test['test_auprc']:.4f}, "
+              f"loss {test['test_loss']:.5f}; (c) card: {smi}", flush=True)
+    return launches
 
 
 @contextlib.contextmanager
@@ -2453,11 +2778,15 @@ def main() -> None:
     phase("12 the training CLI (druglamp_tpu_torch.cli.main)")
     print(f"  card: {smi}", flush=True)
     cli_launches = cli_checks(torch, attention, gcn)
-    for rec in records:        # the launches of the main path, phases 10 to 12 included
+
+    phase("13 the frozen encoders (ESM-2, ChemBERTa, --gen-embed)")
+    print(f"  card: {smi}", flush=True)
+    enc_launches = encoder_checks(torch, attention, gcn, smi)
+    for rec in records:        # the launches of the main path, phases 10 to 13 included
         keys = ([rec["name"]] if rec["name"] != "gcn_packed_matmul"
                 else ["gcn_packed_matmul", "gcn_packed_matmul_bwd"])
         rec["launches"] += sum(gate_launches[k] + fit_launches[k] + cli_launches.get(k, 0)
-                               for k in keys)
+                               + enc_launches.get(k, 0) for k in keys)
     print(f"  device_ms: {len(PROFILE_RETRIES)} timing windows profiled again", flush=True)
 
     print(json.dumps({"kernels": records}))

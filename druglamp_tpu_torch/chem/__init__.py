@@ -7,3 +7,4 @@ from druglamp_tpu_torch.chem.featurize import (  # noqa: F401
     repeat_integer_label_protein,
     CHARPROTSET,
 )
+from druglamp_tpu_torch.chem.tokenizer import SmilesTokenizer, smiles_token_edges  # noqa: F401

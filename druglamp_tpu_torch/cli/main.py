@@ -11,17 +11,20 @@ dataset (``--device-data auto|on``, whenever ``DeviceDataStore.supports`` the
 loader: DrugLAMPwoLLM, or every entity's embedding cached), else the host
 pipeline (``BatchLoader`` batches with the LLM embeddings, or entity ordinals
 into the device embedding store).  ``--eval-only --ckpt <ckpt_best.pt>``
-scores a checkpoint of the port on the test split.
+scores a checkpoint of the port on the test split.  ``--gen-embed`` first
+writes the frozen encoders' embedding caches (ESM-2 and ChemBERTa,
+``encoders/embed_pipeline.py``) for the entity table, from ``--esm-ckpt`` /
+``--chemberta-ckpt`` (with ``--chemberta-tokenizer``) or seeded random
+weights; ``--gen-embed-only`` stops after them.
 
 Split semantics follow the reference: 'cluster'/'Tcpi' switch to RS-task
 mode (source_train.csv for training, target_test.csv for both val and test);
 otherwise train/val/test CSVs.
 
 Flags whose part of the system the port does not hold yet raise
-``NotImplementedError`` naming it: the frozen encoders (``--gen-embed``,
-``--gen-embed-only``, ``--esm-ckpt``, ``--chemberta-*``) and multi-GPU
-(``--mesh-model`` > 1, more than one device in ``--devices``, ``--bn-mode
-per_replica`` over more than one device).
+``NotImplementedError`` naming it: multi-GPU (``--mesh-model`` > 1, more than
+one device in ``--devices``, ``--bn-mode per_replica`` over more than one
+device).
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ N_LAYER2DIMS = {
     12: (384, 480),    # esm2_t12_35M
 }
 
-ENCODERS_SLICE = "the frozen-encoder slice (ESM-2, ChemBERTa and the embedding pipeline)"
 MULTI_GPU_SLICE = "the multi-GPU slice"
 
 
@@ -129,12 +131,6 @@ def build_argparser() -> argparse.ArgumentParser:
 def unported_flags(args) -> None:
     """Raise NotImplementedError, naming the slice, for a flag the port does
     not hold yet."""
-    for flag, value in (("--gen-embed", args.gen_embed), ("--gen-embed-only", args.gen_embed_only),
-                        ("--esm-ckpt", args.esm_ckpt), ("--chemberta-ckpt", args.chemberta_ckpt),
-                        ("--chemberta-tokenizer", args.chemberta_tokenizer)):
-        if value:
-            raise NotImplementedError(f"{flag} needs the encoders, which belong to "
-                                      f"{ENCODERS_SLICE}")
     n_devices = len([d for d in (args.devices or "").split(",") if d.strip()])
     if args.bn_mode == "per_replica" and n_devices > 1:
         raise NotImplementedError(f"--bn-mode per_replica over {n_devices} devices belongs to "
@@ -249,16 +245,26 @@ def main(argv=None) -> int:
     test_ds = val_ds if test_file == val_file else DTIDataset(
         args.data_root, args.data, args.split, test_file, table=train_ds.table, **kw)
 
-    needs_llm = args.model != "DrugLAMPwoLLM"
+    needs_llm = args.model != "DrugLAMPwoLLM" or args.gen_embed_only
     cache_dir = _cache_dir(args, work_dir, train_ds.table)
     if needs_llm:
         cache = EmbeddingCache(cache_dir, args.data, n_drug_feature, n_prot_feature,
                                dtype=torch.bfloat16)
+        if args.gen_embed or args.gen_embed_only:
+            _gen_embed(args, train_ds.table, cache, device)
+            # the LLM widths' sidecar of the reference's workflow
+            # (handler/dataset.py:107-117 writes configs/{n}_layers_params.txt)
+            sidecar = os.path.join(work_dir, f"{args.n_layer}_layers_params.txt")
+            if not os.path.exists(sidecar):
+                with open(sidecar, "w") as f:
+                    f.write(f"{n_drug_feature}\t{n_prot_feature}\n")
+        if args.gen_embed_only:
+            print(f"[gen-embed-only] caches written to {cache_dir}; exiting")
+            return 0
         missing = [o for o in range(train_ds.table.n_drug) if not cache.has_drug(o)]
         if missing:
             print(f"[warn] {len(missing)} drug embeddings missing from {cache_dir}; "
-                  f"using zeros (the encoders that populate it are not ported yet)",
-                  file=sys.stderr)
+                  f"using zeros (run with --gen-embed to populate)", file=sys.stderr)
             embeddings = ZeroEmbeddings(n_drug_feature, n_prot_feature)
         else:
             embeddings = cache
@@ -329,6 +335,16 @@ def main(argv=None) -> int:
     return 0
 
 
+def _gen_embed(args, table, cache, device) -> None:
+    """The frozen encoders' caches for ``table``'s entities (the JAX CLI's
+    call: seed 0, f32)."""
+    from druglamp_tpu_torch.encoders.embed_pipeline import generate_embeddings
+
+    generate_embeddings(table, cache, n_layer=args.n_layer, esm_ckpt=args.esm_ckpt,
+                        chemberta_ckpt=args.chemberta_ckpt,
+                        chemberta_tokenizer=args.chemberta_tokenizer, device=device)
+
+
 def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, device) -> int:
     """Restore a checkpoint of the port and score the test split through the
     host pipeline (no training)."""
@@ -341,14 +357,16 @@ def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, dev
     if needs_llm:
         cache_dir = _cache_dir(args, work_dir, test_ds.table)
         cache = EmbeddingCache(cache_dir, args.data, n_drug_feature, n_prot_feature)
+        if args.gen_embed:
+            _gen_embed(args, test_ds.table, cache, device)
         have_all = (all(cache.has_drug(o) for o in range(test_ds.table.n_drug))
                     and all(cache.has_prot(o) for o in range(test_ds.table.n_prot)))
         if not have_all and not args.allow_zero_embeddings:
             # an LLM-stream model scored on zero embeddings records
             # meaningless metrics as results: refuse unless explicitly asked
-            print(f"error: embedding caches missing from {cache_dir}; the encoders that "
-                  f"populate them are not ported yet; pass --allow-zero-embeddings to "
-                  f"proceed anyway", file=sys.stderr)
+            print(f"error: embedding caches missing from {cache_dir}; run with --gen-embed "
+                  f"to populate them, or pass --allow-zero-embeddings to proceed anyway",
+                  file=sys.stderr)
             return 3
         embeddings = cache if have_all else ZeroEmbeddings(n_drug_feature, n_prot_feature)
         if not have_all:

@@ -19,11 +19,18 @@ arrays.  A leaf's flax path, joined with ``/`` (e.g.
 
 Every leaf of the trees is mapped, the SSL and CM heads' included: a flax
 leaf the model lacks, or a model key left unfilled, raises.
+
+The frozen encoders' trees (``druglamp_tpu/encoders/{esm2,chemberta}.py``)
+map by ``from_jax_encoder_params``: ``layer_{i}`` → ``layers.{i}``, dense
+``kernel`` → ``weight`` (transposed), LayerNorm ``scale`` and an Embed's
+``embedding`` → ``weight``, anything else (a bias, ChemBERTa's
+``token_type_embedding``) by its own name.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import re
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -72,11 +79,29 @@ def from_jax_params(params: Mapping, batch_stats: Mapping, model: nn.Module
     """→ the state_dict for ``model``.  Raises ``KeyError`` on a flax leaf the
     model has no key for, or a model key left unfilled, and ``ValueError`` on
     a shape mismatch."""
+    return _state_from_leaves({**_flatten(params), **_flatten(batch_stats)}, model, _map_leaf)
+
+
+def _map_encoder_leaf(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    *head, leaf = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path.split("/")]
+    if leaf == "kernel":
+        return ".".join(head + ["weight"]), value.T
+    return ".".join(head + ["weight" if leaf in ("scale", "embedding") else leaf]), value
+
+
+def from_jax_encoder_params(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """An encoder's flax params (ESM2 or ChemBERTa) → the state dict of the
+    port's module; raises as ``from_jax_params`` does."""
+    return _state_from_leaves(_flatten(params), model, _map_encoder_leaf)
+
+
+def _state_from_leaves(leaves: Mapping[str, np.ndarray], model: nn.Module,
+                       map_leaf: Callable[[str, np.ndarray], Tuple[str, np.ndarray]]
+                       ) -> Dict[str, torch.Tensor]:
     expected = model.state_dict()
     state: Dict[str, torch.Tensor] = {}
-    leaves = {**_flatten(params), **_flatten(batch_stats)}
     for path, value in leaves.items():
-        key, value = _map_leaf(path, value)
+        key, value = map_leaf(path, value)
         if key not in expected:
             raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
         tensor = torch.tensor(np.asarray(value, dtype=np.float32))

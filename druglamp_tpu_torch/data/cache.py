@@ -1,6 +1,6 @@
-"""Frozen-encoder embedding sources (the port's copy of ``ZeroEmbeddings`` and
-``EmbeddingCache`` from ``druglamp_tpu/data/cache.py``), and the host form of
-bf16 arrays.
+"""Frozen-encoder embedding sources (the port's copy of ``ZeroEmbeddings``,
+``TableZeroEmbeddings`` and ``EmbeddingCache`` from
+``druglamp_tpu/data/cache.py``), and the host form of bf16 arrays.
 
 ``EmbeddingCache`` is a directory of one ``.npy`` per entity, written once by
 the embedding pipeline and loaded once into RAM.  The file names are the JAX
@@ -52,6 +52,42 @@ class ZeroEmbeddings:
 
     def prot(self, ordinal: int) -> np.ndarray:
         return np.zeros((0, self.n_prot_feature), np.float32)
+
+
+class TableZeroEmbeddings(ZeroEmbeddings):
+    """Zero-valued embeddings at the real per-entity token lengths.
+
+    For measurement without an on-disk cache: throughput through the device
+    store depends only on shapes and gathers, not values, but all-zero
+    lengths (plain ZeroEmbeddings) mask every sequence fully.  The lengths
+    are those the embedding pipeline writes (``encoders/embed_pipeline.py``):
+    drugs the ``SmilesTokenizer.encode`` length (CLS + tokens + SEP,
+    truncated), proteins min(len, max_resis) + 2 (ESM's BOS/EOS rows)."""
+
+    def __init__(self, drug_lens: Dict[int, int], prot_lens: Dict[int, int],
+                 n_drug_feature: int = 384, n_prot_feature: int = 640):
+        super().__init__(n_drug_feature, n_prot_feature)
+        self._drug_lens = drug_lens
+        self._prot_lens = prot_lens
+
+    @classmethod
+    def from_table(cls, table, n_drug_feature: int = 384,
+                   n_prot_feature: int = 640, max_prot_resis: int = 1022,
+                   max_drug_tokens: int = 512) -> "TableZeroEmbeddings":
+        from druglamp_tpu_torch.chem.tokenizer import SmilesTokenizer
+
+        tok = SmilesTokenizer()
+        drug_lens = {o: len(tok.encode(smi, max_length=max_drug_tokens))
+                     for smi, o in (getattr(table, "drug2ord", None) or {}).items()}
+        prot_lens = {o: min(len(seq), max_prot_resis) + 2
+                     for seq, o in (getattr(table, "prot2ord", None) or {}).items()}
+        return cls(drug_lens, prot_lens, n_drug_feature, n_prot_feature)
+
+    def drug(self, ordinal: int) -> np.ndarray:
+        return np.zeros((self._drug_lens.get(ordinal, 0), self.n_drug_feature), np.float32)
+
+    def prot(self, ordinal: int) -> np.ndarray:
+        return np.zeros((self._prot_lens.get(ordinal, 0), self.n_prot_feature), np.float32)
 
 
 class EmbeddingCache:

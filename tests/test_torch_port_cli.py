@@ -8,8 +8,8 @@
   ``--device`` (default ``cuda``).
 - ``resolve_split_files``, ``_cache_dir`` and ``write_eval_record`` give the
   JAX package's outputs.
-- Each flag whose slice has not come raises NotImplementedError naming it;
-  ``--device cuda`` raises without a card.
+- Each flag whose slice has not come (multi-GPU) raises NotImplementedError
+  naming it; ``--device cuda`` raises without a card.
 - ``main`` at a tiny ``--config`` on a CSV dataset written here, ``--device
   cpu``, in the three transports the JAX CLI picks: no cache (host batches
   with zero LLM arrays), a seeded cache with ``--device-data off`` (host
@@ -20,6 +20,14 @@
 - ``--eval-only`` on a run's ``ckpt_best.pt`` reproduces the run's test
   metrics (with the cache, and with zeros under ``--allow-zero-embeddings``),
   and refuses missing embeddings with rc 3.
+- The frozen encoders through the CLI (ESM-2 at 2 layers and ChemBERTa at 3,
+  the LLM widths of ``--n-layer 12``): ``--gen-embed-only`` from checkpoint
+  files writes the caches and sidecar the JAX CLI writes (values within
+  2e-5) and trains nothing, for every model; ``--gen-embed`` then trains on
+  them and a second call generates nothing; ``--eval-only --gen-embed``
+  fills the test table's caches; a real ChemBERTa checkpoint without its
+  tokenizer, or with a tokenizer too large for it, raises as the JAX CLI
+  does.
 - The sweep's retries, watchdog and summary, as tests/test_cli.py holds the
   JAX sweep to them, against the port's module; both modes start the port's
   CLI.
@@ -131,17 +139,10 @@ BASE = ["--model", "DrugLAMP2C2P", "--data", "toy", "--data-root", "unused", "--
 
 
 @pytest.mark.parametrize("flags,named,slice_", [
-    (["--gen-embed"], "--gen-embed", cli.ENCODERS_SLICE),
-    (["--gen-embed-only"], "--gen-embed-only", cli.ENCODERS_SLICE),
-    (["--esm-ckpt", "esm.pt"], "--esm-ckpt", cli.ENCODERS_SLICE),
-    (["--chemberta-ckpt", "chem.pt"], "--chemberta-ckpt", cli.ENCODERS_SLICE),
-    (["--chemberta-tokenizer", "tok"], "--chemberta-tokenizer", cli.ENCODERS_SLICE),
     (["--mesh-model", "2"], "--mesh-model", cli.MULTI_GPU_SLICE),
     (["--devices", "0,1"], "--devices", cli.MULTI_GPU_SLICE),
     (["--bn-mode", "per_replica", "--devices", "0,1"], "--bn-mode", cli.MULTI_GPU_SLICE),
-    (["--eval-only", "--ckpt", "c.pt", "--gen-embed"], "--gen-embed", cli.ENCODERS_SLICE),
-], ids=["gen-embed", "gen-embed-only", "esm-ckpt", "chemberta-ckpt", "chemberta-tokenizer",
-        "mesh-model", "devices", "bn-mode", "eval-only-gen-embed"])
+], ids=["mesh-model", "devices", "bn-mode"])
 def test_unported_flags_raise_naming_their_slice(flags, named, slice_):
     with pytest.raises(NotImplementedError) as e:
         cli.main(BASE + flags)
@@ -292,6 +293,173 @@ def test_eval_only_refuses_missing_embeddings(runs, capsys):
                   + ["--eval-only", "--ckpt", os.path.join(wd, "ckpt_best.pt")])
     assert rc == 3
     assert "--allow-zero-embeddings" in capsys.readouterr().err
+
+
+# --- the frozen encoders through the CLI -----------------------------------------------------
+
+ESM_TINY = dict(num_layers=2, embed_dim=480, num_heads=4, ffn_dim=256)   # --n-layer 12's width
+
+
+@pytest.fixture(scope="module")
+def encoder_files(tmp_path_factory):
+    """An HF EsmModel (2 layers, 480 wide) and an HF RobertaModel at
+    ChemBERTa-77M-MTR's geometry (hidden 384 of --n-layer 12) saved with
+    torch.save, and the RoBERTa tokenizer of tests/test_hf_tokenizer.py."""
+    transformers = pytest.importorskip("transformers")
+    from tests.test_hf_tokenizer import _MERGES, _VOCAB
+    from tests.test_torch_port_encoders import _write_tokenizer
+
+    d = tmp_path_factory.mktemp("encoders")
+    esm = transformers.EsmConfig(
+        vocab_size=33, mask_token_id=32, pad_token_id=1, hidden_size=480, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=256, position_embedding_type="rotary",
+        emb_layer_norm_before=False, token_dropout=True, layer_norm_eps=1e-5,
+        max_position_embeddings=1026)
+    rob = transformers.RobertaConfig(
+        vocab_size=600, hidden_size=384, num_hidden_layers=3, num_attention_heads=12,
+        intermediate_size=464, max_position_embeddings=515, pad_token_id=1, type_vocab_size=1,
+        layer_norm_eps=1e-12)
+    torch.manual_seed(0)
+    torch.save(transformers.EsmModel(esm, add_pooling_layer=False).state_dict(), d / "esm.pt")
+    torch.manual_seed(1)
+    torch.save(transformers.RobertaModel(rob, add_pooling_layer=False).state_dict(), d / "cb.pt")
+    return {"esm": str(d / "esm.pt"), "cb": str(d / "cb.pt"),
+            "tok": _write_tokenizer(d / "tok", _VOCAB, _MERGES)}
+
+
+@pytest.fixture
+def tiny_esm(monkeypatch):
+    """Both packages: --n-layer 12's ESM-2 cut to 2 layers, buckets small;
+    the JAX CLI's persistent compilation cache left off."""
+    import druglamp_tpu.encoders.embed_pipeline as jpipe
+    import druglamp_tpu.encoders.esm2 as jesm
+    import druglamp_tpu.utils.jaxsetup as jaxsetup
+    import druglamp_tpu_torch.encoders.embed_pipeline as ppipe
+    import druglamp_tpu_torch.encoders.esm2 as pesm
+
+    monkeypatch.setitem(jesm._ESM2_SIZES, N_LAYER, jesm.ESM2Config(**ESM_TINY))
+    monkeypatch.setitem(pesm._ESM2_SIZES, N_LAYER, pesm.ESM2Config(**ESM_TINY))
+    for mod in (jpipe, ppipe):
+        monkeypatch.setattr(mod, "_BUCKETS", (48,))
+        monkeypatch.setattr(mod, "_DRUG_BUCKETS", (32,))
+    monkeypatch.setattr(jaxsetup, "enable_compilation_cache", lambda *a, **k: None)
+
+
+def _encoder_flags(files, tokenizer=True):
+    return (["--esm-ckpt", files["esm"], "--chemberta-ckpt", files["cb"]]
+            + (["--chemberta-tokenizer", files["tok"]] if tokenizer else []))
+
+
+def _cache_files(d):
+    return {n: np.load(os.path.join(d, n)) for n in sorted(os.listdir(d))}
+
+
+def _table(runs, name):
+    return DTIDataset(runs["root"], "toy", "random", name, max_nodes=32, seq_len=144,
+                      max_prot_resis=40).table
+
+
+def _jax_argv(argv):
+    """The port CLI's argv for the JAX CLI (which has no --device)."""
+    i = argv.index("--device")
+    return argv[:i] + argv[i + 2:]
+
+
+def test_gen_embed_only_matches_the_jax_cli(runs, encoder_files, tiny_esm, tmp_path, capsys):
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        argv = _argv(runs["root"], runs["yaml"], str(tmp_path / name)) + ["--gen-embed-only"] \
+            + _encoder_flags(encoder_files)
+        assert main(argv if name == "port" else _jax_argv(argv)) == 0
+        assert "[gen-embed-only] caches written" in capsys.readouterr().out
+        assert not os.path.exists(tmp_path / name / "metrics.jsonl")
+        outs[name] = _cache_files(tmp_path / name / "embed_cache")
+        assert open(tmp_path / name / f"{N_LAYER}_layers_params.txt").read() == "384\t480\n"
+    table = _table(runs, "train.csv")
+    assert outs["port"].keys() == outs["jax"].keys()
+    assert len(outs["port"]) == table.n_drug + table.n_prot
+    for n, want in outs["jax"].items():
+        assert outs["port"][n].shape == want.shape, n
+        np.testing.assert_allclose(outs["port"][n], want, rtol=0, atol=2e-5, err_msg=n)
+
+
+@pytest.mark.parametrize("model", ["DrugLAMPwoLLM", "DrugLAMP"])
+def test_gen_embed_only_random_init_writes_caches_for_every_model(runs, tiny_esm, tmp_path,
+                                                                  model, capsys):
+    """No checkpoint: seeded random weights with the warning; DrugLAMPwoLLM
+    too (--gen-embed-only is a cache warm-up whatever the model)."""
+    argv = _argv(runs["root"], runs["yaml"], str(tmp_path)) + ["--gen-embed-only"]
+    argv[argv.index("DrugLAMP2C2P")] = model
+    assert cli.main(argv) == 0
+    assert "random-initialized" in capsys.readouterr().err
+    table = _table(runs, "train.csv")
+    files = _cache_files(tmp_path / "embed_cache")
+    assert len(files) == table.n_drug + table.n_prot
+    assert all(np.isfinite(a).all() for a in files.values())
+    assert not os.path.exists(tmp_path / "metrics.jsonl")
+
+
+def test_gen_embed_then_trains(runs, encoder_files, tiny_esm, tmp_path, monkeypatch):
+    """--gen-embed writes every entity's cache, then trains over the
+    device-resident dataset on them; a second call finds them all and runs
+    neither encoder."""
+    import druglamp_tpu_torch.encoders.chemberta as pcb
+    import druglamp_tpu_torch.encoders.esm2 as pesm
+
+    wd = str(tmp_path / "w")
+    argv = _argv(runs["root"], runs["yaml"], wd) + ["--gen-embed"] + _encoder_flags(encoder_files)
+    assert cli.main(argv) == 0
+    table = _table(runs, "train.csv")
+    cache = EmbeddingCache(os.path.join(wd, "embed_cache"), "toy", 384, 480)
+    assert all(cache.has_drug(o) for o in range(table.n_drug))
+    assert all(cache.has_prot(o) for o in range(table.n_prot))
+    records = _records(os.path.join(wd, "metrics.jsonl"))
+    assert records[0]["device_data"] is True
+    epochs = [r for r in records if "train_loss" in r]
+    assert [r["epoch"] for r in epochs] == [1, 2]
+    assert all(np.isfinite(r[k]) for r in epochs for k in ("train_loss", "val_ausum"))
+    assert np.isfinite(_test_record(records)["test_auroc"])
+    for cls in (pesm.ESM2, pcb.ChemBERTa):
+        monkeypatch.setattr(cls, "forward", lambda self, t: pytest.fail("an encoder ran"))
+    assert cli.main(_argv(runs["root"], runs["yaml"], wd) + ["--gen-embed-only"]) == 0
+
+
+def test_eval_only_gen_embed_fills_the_test_table(runs, encoder_files, tiny_esm, tmp_path,
+                                                  monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    wd = str(tmp_path / "w")
+    ckpt = os.path.join(str(runs["work"] / "nocache"), "ckpt_best.pt")
+    argv = _argv(runs["root"], runs["yaml"], wd) + ["--eval-only", "--ckpt", ckpt,
+                                                    "--gen-embed"] + _encoder_flags(encoder_files)
+    assert cli.main(argv) == 0
+    table = _table(runs, "test.csv")
+    files = _cache_files(os.path.join(wd, "embed_cache"))
+    assert len(files) == table.n_drug + table.n_prot
+    (out_dir,) = os.listdir(tmp_path / "results")
+    record = _records(tmp_path / "results" / out_dir / "metrics.jsonl")[1]
+    assert np.isfinite(record["test_auroc"])
+
+
+@pytest.mark.parametrize("case", ["no_tokenizer", "foreign_tokenizer"])
+def test_real_chemberta_ckpt_needs_its_tokenizer(runs, encoder_files, tiny_esm, tmp_path, case):
+    """A real ChemBERTa checkpoint with the regex tokenizer, or with a
+    tokenizer larger than its embedding table: both CLIs raise the same
+    ValueError and write no drug cache."""
+    flags = _encoder_flags(encoder_files, tokenizer=False)
+    if case == "foreign_tokenizer":
+        vocab = {f"t{i}": i for i in range(700)}
+        vocab.update({"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, "<mask>": 4})
+        from tests.test_torch_port_encoders import _write_tokenizer
+        flags += ["--chemberta-tokenizer", _write_tokenizer(tmp_path / "big", vocab, ["#v"])]
+    errors = []
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        argv = _argv(runs["root"], runs["yaml"], str(tmp_path / name)) + ["--gen-embed"] + flags
+        with pytest.raises(ValueError) as e:
+            main(argv if name == "port" else _jax_argv(argv))
+        errors.append(str(e.value))
+        assert not any("drug" in f for f in os.listdir(tmp_path / name / "embed_cache"))
+    assert errors[0] == errors[1]
+    assert ("regex tokenizer" if case == "no_tokenizer" else "exceeds") in errors[0]
 
 
 # --- the sweep ------------------------------------------------------------------------------

@@ -747,3 +747,66 @@ def test_host_fed_epochs_on_the_card(cuda, tmp_path, monkeypatch, source):
         assert tg.cm_weight == t.cm_weight
         assert all(torch.equal(a, b) for a, b in zip(ref.state_dict().values(),
                                                      model.state_dict().values()))
+
+
+# --- the frozen encoders ----------------------------------------------------------------------
+
+def _encoders(dtype=torch.float32):
+    from druglamp_tpu_torch.encoders.chemberta import ChemBERTa, ChemBERTaConfig
+    from druglamp_tpu_torch.encoders.esm2 import ESM2, ESM2Config
+    from druglamp_tpu_torch.encoders.layers import seeded_state
+
+    out = []
+    for model, seed in ((ESM2(ESM2Config(num_layers=4, embed_dim=320, num_heads=20), dtype), 0),
+                        (ChemBERTa(ChemBERTaConfig(), dtype), 1)):
+        model.load_state_dict(seeded_state(model, seed))
+        out.append(model.eval())
+    return out
+
+
+@pytest.mark.parametrize("which", ["esm2", "chemberta"])
+def test_encoder_on_the_card_matches_the_cpu(cuda, which):
+    """f32 in true f32 under a caller's matmul precision "high": within 2e-5 of the same
+    module on the CPU, pads and (ESM-2) a <mask> in the batch; two card runs
+    bit-identical."""
+    from druglamp_tpu_torch.utils.numerics import true_f32
+
+    model = _encoders()[which == "chemberta"]
+    g = torch.Generator().manual_seed(2)
+    vocab = 33 if which == "esm2" else 600
+    toks = torch.randint(4, min(vocab, 30), (4, 200), generator=g)
+    toks[:, 0] = 0
+    toks[1, 150:] = 1
+    toks[2, 7] = 32 if which == "esm2" else 5
+    with torch.inference_mode():
+        ref = model(toks)
+        card = model.to(cuda)
+        torch.set_float32_matmul_precision("high")
+        try:
+            with true_f32():
+                got = [card(toks.to(cuda)) for _ in range(2)]
+        finally:
+            torch.set_float32_matmul_precision("highest")
+    assert torch.equal(got[0], got[1])
+    assert (got[0].cpu() - ref).abs().max().item() <= 2e-5
+
+
+def test_generate_embeddings_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    from types import SimpleNamespace
+
+    import druglamp_tpu_torch.encoders.esm2 as esm2
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+    from druglamp_tpu_torch.encoders import embed_pipeline
+
+    monkeypatch.setitem(esm2._ESM2_SIZES, 12, esm2.ESM2Config(4, 480, 20))
+    table = SimpleNamespace(drug2ord={s: i for i, s in enumerate(["CCO", "c1ccccc1O", "CCN(C)C"])},
+                            prot2ord={p: i for i, p in enumerate(["MKTAYIAK" * 20, "LAGV" * 9])})
+    files = {}
+    for dev in ("cpu", "cuda"):
+        cache = EmbeddingCache(str(tmp_path / dev), "t", 384, 480)
+        embed_pipeline.generate_embeddings(table, cache, n_layer=12, verbose=False, device=dev)
+        files[dev] = {p.name: np.load(p) for p in sorted((tmp_path / dev).iterdir())}
+    assert files["cpu"].keys() == files["cuda"].keys() and len(files["cpu"]) == 5
+    for name, ref in files["cpu"].items():
+        assert files["cuda"][name].shape == ref.shape
+        assert np.abs(files["cuda"][name] - ref).max() <= 2e-5, name

@@ -1,6 +1,9 @@
 """The port (druglamp_tpu_torch/) and chip_smoke.py import neither JAX nor
 anything of the JAX package, nor ml_dtypes (the card's machine has none: the
-port's bf16 host arrays are uint16 bit patterns, data/cache.py)."""
+port's bf16 host arrays are uint16 bit patterns, data/cache.py).  Importing
+the port loads neither ``transformers`` nor ``safetensors`` either: the
+card's machine has neither, and the HF tokenizer and the .safetensors reader
+import them only when they are used."""
 
 import ast
 import os
@@ -16,15 +19,18 @@ PORT_FILES = sorted((ROOT / "druglamp_tpu_torch").rglob("*.py")) + [ROOT / "chip
 
 
 # The modules of the device-resident epoch and the packed GCN kernel, of the
-# SSL/CM gates and the Trainer, and of the host pipeline and the training CLI
-# (the glob above must reach them).
+# SSL/CM gates and the Trainer, of the host pipeline and the training CLI, and
+# of the frozen encoders (the glob above must reach them).
 SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py",
                  "data/dataset.py", "data/cache.py", "eval/metrics.py", "train/steps.py",
                  "nn/layers.py", "losses/masking.py", "losses/schedules.py", "models/ssl.py",
                  "models/cm.py", "models/base.py", "models/druglamp.py", "convert.py",
                  "train/state.py", "train/schedule.py", "train/trainer.py",
                  "utils/logging.py", "config.py", "data/loader.py", "cli/main.py",
-                 "cli/sweep.py")
+                 "cli/sweep.py", "chem/tokenizer.py", "chem/hf_tokenizer.py",
+                 "encoders/__init__.py", "encoders/layers.py", "encoders/esm2.py",
+                 "encoders/chemberta.py", "encoders/convert.py", "encoders/embed_pipeline.py")
+LAZY = ("transformers", "safetensors")     # imported only where used, never at import
 
 
 def _imported_modules(path):
@@ -54,7 +60,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
         "assert not bad, bad\n"
-        "print('ok')\n" % (FORBIDDEN,)
+        "print('ok')\n" % (FORBIDDEN + LAZY,)
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
