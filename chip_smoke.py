@@ -158,6 +158,26 @@ printing its own lines; any failure exits non-zero and prints no result:
    peak memory, the card forward's TFLOP/s against its f32 bound, and the
    training epochs beside phase 12's.
 
+14. data parallel — two ranks of this script (``--dp-rank``, started with
+   torchrun's variables): one a card over NCCL with two cards or more, else
+   both on cuda:0 over gloo (printed; a failure is never retried another
+   way).  (a) DrugLAMP2C2P's full-gate step at ``Config()`` in f32, dropout
+   0, the fixed MLM mask of the parity tests, the batch of 16 split in
+   halves: global mode against the one-process step on the 16 rows,
+   per_replica against the one-process ``bn_groups=2`` step (losses 1e-5,
+   gradients rtol 5e-3 / atol 5e-5), then one step over the ranks after
+   which both hold the same parameters and buffers bit for bit; (b) 10 bf16
+   full-gate steps: each rank's launches by phase 10's one-process formula,
+   the step by CUDA events, host issue time, the collectives' time and
+   share of a profiled step (table per rank in
+   ``chiprun_out/dp_profile_rank<r>.txt``); two ranks on one card measure
+   correctness and the collectives' cost, not scaling; (c) phase 12's
+   3-epoch DrugLAMP2C2P recipe through ``cli.main`` on both ranks, gather
+   transport, global mode: finite metrics identical on both ranks,
+   checkpoints written by rank 0 only, the launches by phase 12's formula,
+   and the run resumed from its epoch-1 checkpoints ending with the same
+   ``ckpt_last.pt`` bit for bit.
+
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
 if every kernel record came back.
@@ -2514,6 +2534,409 @@ def encoder_checks(torch, attention, gcn, smi):
     return launches
 
 
+# --- phase 14: data-parallel training over two ranks ---------------------------------------
+
+DP_WORLD = 2
+DP_TIMEOUT_S = 480
+DP_HALF = TRAIN_B // DP_WORLD
+DP_ISSUE_STEPS = 5           # steps whose host issue time (b) reads
+
+
+def dp_plan(torch):
+    """(backend, the ranks' device, what it means): one rank a card over NCCL
+    when there are cards enough, else both ranks on cuda:0 over gloo."""
+    if torch.cuda.device_count() >= DP_WORLD:
+        return "nccl", "cuda", f"one rank a card (cuda:0, cuda:1) over NCCL"
+    return ("gloo", "cuda:0", f"both ranks on cuda:0 over gloo ({torch.cuda.device_count()} card: "
+            "correctness and the collectives' cost, not scaling)")
+
+
+def dp_checks(torch, smi):
+    """Phase 14: start DP_WORLD ranks of this script (``--dp-rank``, with
+    torchrun's variables), each on the plan's card, and check what they
+    report → the launches of the main path ((b) and (c)) summed over the
+    ranks."""
+    import socket
+    import tempfile
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+
+    backend, device, how = dp_plan(torch)
+    print(f"  {DP_WORLD} ranks: {how}; card: {smi}", flush=True)
+    torch.cuda.empty_cache()
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root)
+        train = DTIDataset(root, "synthetic", "random", "train.csv", max_nodes=cfg.drug.max_nodes,
+                           max_prot_resis=cfg.protein.max_resis, seq_len=cfg.protein.seq_len)
+        seed_cache(os.path.join(root, "c", "embed_cache"), train.table, cfg)
+        os.makedirs(os.path.join(root, "r"))
+        os.symlink(os.path.join(root, "c", "embed_cache"), os.path.join(root, "r", "embed_cache"))
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump({"backend": backend, "device": device, "root": root,
+                       "yaml": cli_yaml(root, "DrugLAMP2C2P", FIT_EPOCHS),
+                       "steps": len(train) // cfg.solver.batch_size}, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(DP_WORLD), "LOCAL_WORLD_SIZE": str(DP_WORLD),
+               "DRUGLAMP_PACKED_GCN": "1", "DRUGLAMP_DIST_BACKEND": backend}
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(DP_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", root],
+                                  env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO,
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(DP_WORLD)]
+        end = time.time() + DP_TIMEOUT_S
+        while any(p.poll() is None for p in procs) and time.time() < end:
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for r, f in enumerate(logs):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            lines = text.splitlines()
+            for line in (lines if r == 0 or procs[r].returncode else lines[-3:]):
+                print(f"  [rank {r}] {line}", flush=True)
+        if any(p.returncode != 0 for p in procs):
+            fail(f"phase 14: ranks returned {[p.returncode for p in procs]} "
+                 f"(timeout {DP_TIMEOUT_S} s)")
+        outs = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    first, second = outs
+    # a rank's collectives include its wait for the rank that arrives last
+    # (NCCL kernels spin on the card meanwhile), so the least reading is the
+    # collectives' own cost
+    least = min(outs, key=lambda o: o["b"]["coll_ms"])["b"]
+    print(f"  b: collectives {least['coll_ms']:.2f} ms of a {least['step_ms']:.2f} ms step "
+          f"({least['coll_ms'] / least['step_ms']:.1%}) on the rank that waited least; the "
+          f"ranks' readings {[round(o['b']['coll_ms'], 2) for o in outs]} ms", flush=True)
+    if first["c"]["evaluations"] != second["c"]["evaluations"]:
+        fail("phase 14 c: the ranks' validation and test metrics differ")
+    if second["c"]["saves"] or not first["c"]["saves"]:
+        fail(f"phase 14 c: checkpoints written by rank 1 {second['c']['saves']}, by rank 0 "
+             f"{first['c']['saves']}")
+    print(f"  c: metrics identical on both ranks ({len(first['c']['evaluations'])} evaluations); "
+          f"checkpoints from rank 0 only ({len(first['c']['saves'])} writes)", flush=True)
+    total = {}
+    for out in outs:
+        for k, v in out["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def dp_fixed_mask(seq, generator, **kw):
+    """The MLM mask of every 5th non-pad position (the parity tests' own):
+    the same tokens whichever rank holds a row."""
+    import torch
+
+    idx = torch.arange(seq.shape[1], device=seq.device)[None, :]
+    mask = (seq != 0) & (idx % 5 == 0)
+    return torch.where(mask, torch.full_like(seq, 26), seq), torch.where(mask, seq, 0), mask
+
+
+def dp_grouped_cm(torch, labels):
+    """full_gate_batch's CM ground truth, one block a rank's half."""
+    import numpy as np
+
+    from druglamp_tpu_torch.data.loader import build_cm_arrays
+
+    t = np.arange(TRAIN_B)
+    y = labels.cpu().numpy()
+    halves = [build_cm_arrays(t[s] % 5, t[s] % 7, y[s])
+              for s in (slice(0, DP_HALF), slice(DP_HALF, TRAIN_B))]
+    return {k: torch.from_numpy(np.stack([h[k] for h in halves])).to(DEVICE) for k in halves[0]}
+
+
+def dp_same_on_ranks(torch, mesh, tensors) -> bool:
+    """Every rank holds these tensors bit for bit (their bits' maximum and
+    minimum over the ranks agree)."""
+    import torch.distributed as dist
+
+    bits = torch.cat([t.detach().reshape(-1).float().view(torch.int32) for t in tensors])
+    hi, lo = bits.clone(), bits.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def dp_f32_checks(torch, mesh, rank):
+    """(a) The full-gate step in f32, dropout 0, the fixed MLM mask, at full
+    width: global mode against the one-process step on the global batch,
+    per_replica against the one-process bn_groups=2 step (rank 0 computes
+    them); losses 1e-5, gradients rtol 5e-3 / atol 5e-5; then one step over
+    the ranks: parameters and buffers bit-identical on both ranks."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import decode_batch
+    from druglamp_tpu_torch.losses import masking
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train import steps
+    from druglamp_tpu_torch.train.state import TrainState
+
+    cfg = Config()
+    cfg32 = dataclasses.replace(cfg, pmma_dropout=0.0,
+                                solver=dataclasses.replace(cfg.solver, compute_dtype="float32"))
+    saved, masking.mlm_mask = masking.mlm_mask, dp_fixed_mask
+    batch = full_gate_batch(torch, cfg32)
+    one = torch.ones((), device=DEVICE)
+
+    def model_for(groups):
+        return build_model("DrugLAMP2C2P", cfg32, generator=torch.Generator().manual_seed(SEED),
+                           bn_groups=groups).to(DEVICE).train()
+
+    def grads_of(model, b, m):
+        with steps.train_numerics():
+            cls, ssl, cm, _, _, g = steps.loss_gradients(model, decode_batch(dict(b)), None, True,
+                                                         True, False, MARGIN, one, mesh=m)
+        return [float(cls), float(ssl), float(cm)], g
+
+    for mode, groups in (("global", 1), ("per_replica", 2)):
+        b = dict(batch)
+        if groups > 1:
+            b["cm"] = dp_grouped_cm(torch, batch["labels"])
+        shard = mesh.shard_batch(b, whole=("cm",) if groups == 1 else ())
+        losses, grads = grads_of(model_for(groups), shard, mesh)
+        if rank == 0:
+            ref_losses, ref = grads_of(model_for(groups), b, None)
+            worst, bad = 0.0, []
+            for loss in ("cls", "ssl", "cm"):
+                for i, (a, r) in enumerate(zip(grads[loss], ref[loss])):
+                    worst = max(worst, (a - r).abs().max().item())
+                    if not torch.allclose(a, r, rtol=5e-3, atol=5e-5):
+                        bad.append((loss, i))
+            dloss = max(abs(a - r) for a, r in zip(losses, ref_losses))
+            print(f"  a {mode}: f32 full gate over {DP_WORLD} ranks ({DP_HALF} rows each) vs one "
+                  f"process on the {TRAIN_B} rows: losses {['%.7f' % x for x in losses]} vs "
+                  f"{['%.7f' % x for x in ref_losses]}, max |Δ| {dloss:.3e} (tol 1e-5); 3 × "
+                  f"{len(grads['cls'])} gradient leaves, max |Δg| {worst:.3e} (rtol 5e-3, atol "
+                  f"5e-5), {len(bad)} outside", flush=True)
+            if bad or dloss > 1e-5:
+                fail(f"phase 14 a {mode}: the ranks' step differs from one process: {bad[:5]}")
+            del ref
+        mesh.barrier()
+        model = model_for(groups)
+        step = steps.make_train_step(model, True, True, calibrate=True, device=DEVICE, mesh=mesh)
+        state = TrainState.create(model, True, True)
+        step(state, shard, None, F32_LR, SSL_LR, CM_LR, MARGIN, 1.0)
+        same = dp_same_on_ranks(torch, mesh, list(model.state_dict().values()))
+        print(f"  a {mode}: after one step, {len(model.state_dict())} parameters and buffers "
+              f"{'bit-identical' if same else 'DIFFERENT'} on the {DP_WORLD} ranks", flush=True)
+        if not same:
+            fail(f"phase 14 a {mode}: the ranks' parameters differ after a step")
+        del model, step, state, grads
+    masking.mlm_mask = saved
+
+
+def dp_bf16_steps(torch, attention, gcn, mesh, rank, backend):
+    """(b) TRAIN_STEPS bf16 full-gate steps over the ranks at full width, the
+    global batch of TRAIN_B split in halves: each rank's launches by the
+    one-process formula, finite losses; the step by CUDA events, host issue
+    time, and from one profiled step the collectives' time and share
+    → (launches, {"step_ms", "coll_ms"})."""
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+
+    cfg = Config()
+    model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(model, True, True, calibrate=True, device=DEVICE, mesh=mesh)
+    state = TrainState.create(model, True, True)
+    shard = mesh.shard_batch(full_gate_batch(torch, cfg), whole=("cm",))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + rank)
+    w = 1e-3
+    reset_counts(attention, gcn)
+    outs = []
+    for _ in range(TRAIN_STEPS):
+        outs.append(step(state, shard, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w))
+        w = outs[-1].cm_weight
+    torch.cuda.synchronize()
+    launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    want = {k: TRAIN_STEPS * v for k, v in FULL_GATE_PER_STEP.items()}
+    losses = [[float(getattr(o, k)) for o in outs] for k in ("cls_loss", "ssl_loss", "cm_loss")]
+    print(f"  b: {TRAIN_STEPS} bf16 full-gate steps, {DP_HALF} rows a rank; launches {launches} "
+          f"(one-process formula {want}); cls losses {['%.5f' % x for x in losses[0]]}",
+          flush=True)
+    if launches != want:
+        fail(f"phase 14 b: rank {rank} launches {launches}, expected {want}")
+    if not all(math.isfinite(x) for row in losses for x in row):
+        fail("phase 14 b: non-finite losses")
+    run = lambda: step(state, shard, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w)   # noqa: E731
+    step_ms = time_ms(torch, run, iters=TRAIN_STEPS, reps=2, warmup=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_ISSUE_STEPS):
+        run()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / DP_ISSUE_STEPS
+    torch.cuda.synchronize()
+    with profiling(torch, cpu=True) as prof:
+        run()
+    averages = prof.key_averages()
+    # gloo runs each collective on its own host thread ("gloo:<op>" spans, the
+    # copies to and from the card included); NCCL runs it in kernels
+    host_coll = sum(e.cpu_time_total for e in averages
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.key.startswith("gloo:")) / 1e3
+    n_coll = sum(e.count for e in averages if e.key.startswith(("gloo:", "nccl:")))
+    dev_coll = sum(e.self_device_time_total for e in device_kernels(torch, averages)
+                   if "nccl" in e.key.lower()) / 1e3
+    busy = sum(e.self_device_time_total for e in device_kernels(torch, averages)) / 1e3
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"dp_profile_rank{rank}.txt"), "w") as f:
+        f.write(averages.table(sort_by="cpu_time_total", row_limit=40))
+    coll = dev_coll if backend == "nccl" else host_coll
+    print(f"  b: step {step_ms:.2f} ms (CUDA events, median of 2 x {TRAIN_STEPS}), "
+          f"{TRAIN_B / step_ms * 1e3:.1f} global pairs/s; host issue {issue_ms:.2f} ms a step; "
+          f"profiled step: kernels {busy:.2f} ms, {n_coll} collectives {coll:.2f} ms "
+          f"({coll / step_ms:.1%} of the step; {backend}: NCCL kernels {dev_coll:.2f} ms, gloo "
+          f"threads {host_coll:.2f} ms)", flush=True)
+    del model, step, state
+    return launches, {"step_ms": step_ms, "coll_ms": coll}
+
+
+def dp_cli(torch, attention, gcn, mesh, rank, spec):
+    """(c) Phase 12's 3-epoch DrugLAMP2C2P recipe through ``cli.main`` over
+    the ranks on phase 9's data with a seeded cache: the gather transport,
+    global mode; every evaluation's metrics recorded (the parent compares
+    the ranks'), each rank's checkpoint writes counted, launches by phase
+    12's formula; then the same run resumed from its epoch-1 checkpoints
+    ends with the same ``ckpt_last.pt``, bit for bit."""
+    import shutil
+
+    from druglamp_tpu_torch.cli import main as cli
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.train import trainer as trainer_mod
+
+    root = spec["root"]
+    cfg = Config()
+    Trainer = trainer_mod.Trainer
+    saved = (torch.save, Trainer.evaluate, Trainer._save)
+    saves, evaluations = [], []
+
+    def counting_save(obj, path, *a, **k):
+        saves.append(str(path))
+        return saved[0](obj, path, *a, **k)
+
+    def recording_evaluate(self, *a, **k):
+        m = saved[1](self, *a, **k)
+        evaluations.append({k2: float(v) for k2, v in m.items()})
+        return m
+
+    def keeping_save(self, path, snapshot):
+        saved[2](self, path, snapshot)
+        if self.epoch == 1 and path.startswith(os.path.join(root, "c") + os.sep) \
+                and path.endswith("ckpt_last.pt"):
+            if self.primary:
+                for name in ("ckpt_best.pt", "ckpt_last.pt"):
+                    shutil.copy(os.path.join(root, "c", name), os.path.join(root, "r", name))
+            mesh.barrier()
+
+    def argv(work, *extra):
+        return ["--model", "DrugLAMP2C2P", "--data", "synthetic", "--split", "random",
+                "--data-root", root, "--config", spec["yaml"], "--work-dir",
+                os.path.join(root, work), "--seed", str(SEED), "--no-comet", "--device",
+                spec["device"], "--device-data", "auto", *extra]
+
+    torch.save, Trainer.evaluate, Trainer._save = counting_save, recording_evaluate, keeping_save
+    try:
+        reset_counts(attention, gcn)
+        t0 = time.perf_counter()
+        rc = cli.main(argv("c"))
+        wall = time.perf_counter() - t0
+        launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+        if rc != 0:
+            fail(f"phase 14 c: the CLI returned {rc} on rank {rank}")
+        mine = list(saves)
+        reset_counts(attention, gcn)
+        rc = cli.main(argv("r", "--resume"))
+        resumed = {**attention.LAUNCHES, **gcn.LAUNCHES}
+        if rc != 0:
+            fail(f"phase 14 c: the resumed CLI returned {rc} on rank {rank}")
+    finally:
+        torch.save, Trainer.evaluate, Trainer._save = saved
+    if rank == 0:
+        with open(os.path.join(root, "c", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        hp = records[0]
+        epochs = [r for r in records if "train_loss" in r]
+        test = next(r for r in records if "test_auroc" in r)
+        gates = [("ssl_loss" in r, "cm_loss" in r) for r in epochs]
+        n_eval = -(-VAL_PAIRS // cfg.solver.eval_batch_size)
+        want = want_launches(gates, spec["steps"], n_eval)
+        for r in epochs:
+            print(f"  c epoch {r['epoch']} ({'+'.join(g for g, k in (('cls', 'train_loss'), ('ssl', 'ssl_loss'), ('cm', 'cm_loss')) if k in r)}, gather, "
+                  f"{spec['steps']} steps of {DP_HALF} rows a rank): losses "
+                  f"{[round(r[k], 5) for k in ('train_loss', 'ssl_loss', 'cm_loss') if k in r]}, val "
+                  f"AUSum {r['val_ausum']:.4f}; {r['epoch_time_s'] * 1e3:.1f} ms (host clock), "
+                  f"{r['pairs_per_s']:.1f} global pairs/s", flush=True)
+        print(f"  c: {wall:.1f} s, hyperparams ranks {hp['ranks']}, bn_mode {hp['bn_mode']}, "
+              f"device_data {hp['device_data']}; test AUROC {test['test_auroc']:.4f}, AUPRC "
+              f"{test['test_auprc']:.4f}; rank 0 launches {launches} (formula {want})", flush=True)
+        values = [r[k] for r in epochs for k in ("train_loss", "ssl_loss", "cm_loss", "val_ausum")
+                  if k in r] + [test[k] for k in ("test_auroc", "test_auprc", "test_loss")]
+        if not all(math.isfinite(v) for v in values):
+            fail(f"phase 14 c: non-finite losses or metrics {values}")
+        if hp["ranks"] != DP_WORLD or not hp["device_data"]:
+            fail(f"phase 14 c: ran over {hp['ranks']} ranks, device_data {hp['device_data']}")
+        if launches != want:
+            fail(f"phase 14 c: launches {launches}, expected {want}")
+        a = torch.load(os.path.join(root, "c", "ckpt_last.pt"), map_location="cpu",
+                       weights_only=True)
+        b = torch.load(os.path.join(root, "r", "ckpt_last.pt"), map_location="cpu",
+                       weights_only=True)
+        differ = [k for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
+        print(f"  c: resumed from the epoch-1 checkpoints: ckpt_last.pt of epoch "
+              f"{b['host']['epoch']} vs the unbroken run's (epoch {a['host']['epoch']}): "
+              f"{len(differ)} of {len(a['model'])} leaves differ", flush=True)
+        if differ or a["host"] != b["host"]:
+            fail(f"phase 14 c: the resumed run differs: {differ[:5]}")
+    total = {k: launches[k] + resumed[k] for k in launches}
+    return {"evaluations": evaluations, "saves": mine, "launches": total}
+
+
+def dp_rank(root: str) -> None:
+    """One rank of phase 14 (``python3 chip_smoke.py --dp-rank <dir>`` with
+    torchrun's variables): (a), (b) and (c) → <dir>/rank<r>.json."""
+    global DEVICE
+    sys.path.insert(0, REPO)
+    import torch
+
+    from druglamp_tpu_torch.kernels import attention, gcn
+    from druglamp_tpu_torch.parallel.distributed import join_group
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh
+
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    dev = join_group(spec["device"], spec["backend"])      # the CLI's call
+    DEVICE = str(dev)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshContext(make_mesh(1))
+    rank = mesh.rank
+    print(f"rank {rank} of {mesh.n_data} on {DEVICE} ({torch.cuda.get_device_name(dev)}), "
+          f"{spec['backend']}", flush=True)
+    dp_f32_checks(torch, mesh, rank)
+    launches, b = dp_bf16_steps(torch, attention, gcn, mesh, rank, spec["backend"])
+    c = dp_cli(torch, attention, gcn, mesh, rank, spec)
+    c_launches = c.pop("launches")
+    total = {k: launches[k] + c_launches[k] for k in launches}
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump({"b": b, "c": c, "launches": total}, f)
+    torch.distributed.destroy_process_group()
+
+
 @contextlib.contextmanager
 def profiling(torch, cpu: bool = False):
     """A profiler window (the card's activity, and the host's with ``cpu``)
@@ -2782,11 +3205,14 @@ def main() -> None:
     phase("13 the frozen encoders (ESM-2, ChemBERTa, --gen-embed)")
     print(f"  card: {smi}", flush=True)
     enc_launches = encoder_checks(torch, attention, gcn, smi)
-    for rec in records:        # the launches of the main path, phases 10 to 13 included
+
+    phase("14 data-parallel training over two ranks")
+    dp_launches = dp_checks(torch, smi)
+    for rec in records:        # the launches of the main path, phases 10 to 14 included
         keys = ([rec["name"]] if rec["name"] != "gcn_packed_matmul"
                 else ["gcn_packed_matmul", "gcn_packed_matmul_bwd"])
         rec["launches"] += sum(gate_launches[k] + fit_launches[k] + cli_launches.get(k, 0)
-                               + enc_launches.get(k, 0) for k in keys)
+                               + enc_launches.get(k, 0) + dp_launches.get(k, 0) for k in keys)
     print(f"  device_ms: {len(PROFILE_RETRIES)} timing windows profiled again", flush=True)
 
     print(json.dumps({"kernels": records}))
@@ -2794,4 +3220,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
+        dp_rank(sys.argv[2])
+    else:
+        main()

@@ -21,10 +21,23 @@ Split semantics follow the reference: 'cluster'/'Tcpi' switch to RS-task
 mode (source_train.csv for training, target_test.csv for both val and test);
 otherwise train/val/test CSVs.
 
-Flags whose part of the system the port does not hold yet raise
-``NotImplementedError`` naming it: multi-GPU (``--mesh-model`` > 1, more than
-one device in ``--devices``, ``--bn-mode per_replica`` over more than one
-device).
+Under torchrun it trains data-parallel over the ranks, one process and one
+card a rank (``cuda:LOCAL_RANK``), as the JAX CLI trains over its mesh's
+``data`` axis:
+
+    torchrun --nproc-per-node N -m druglamp_tpu_torch.cli.main --model DrugLAMP2C2P ...
+
+The backend is NCCL on cards and gloo on the CPU; ``DRUGLAMP_DIST_BACKEND=
+gloo`` with ``--device cuda:0`` puts every rank on one card (for tests: two
+ranks sharing a card measure correctness, not speed).  Each global batch of
+``solver.batch_size`` splits into contiguous rows, one share a rank.
+``--bn-mode global`` (the default) is the single program on the global
+batch; ``per_replica`` gives every BatchNorm per-rank statistics and mines
+the CM triplets per rank (torch DDP's semantics; the JAX CLI's
+``bn_groups``), over the host pipeline.  ``--devices`` is accepted and
+changes nothing: the process group sets the data-parallel size.  Rank 0
+writes the logs and checkpoints.  Tensor parallelism (``--mesh-model`` > 1)
+raises ``NotImplementedError`` naming the tensor-parallel slice.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ import time
 
 import numpy as np
 
+from druglamp_tpu_torch.parallel import TENSOR_PARALLEL_SLICE
+
 # ESM-2 layer-count → (ChemBERTa hidden, ESM embed dim), per public ESM-2 size
 N_LAYER2DIMS = {
     48: (384, 5120),   # esm2_t48_15B
@@ -46,7 +61,7 @@ N_LAYER2DIMS = {
     12: (384, 480),    # esm2_t12_35M
 }
 
-MULTI_GPU_SLICE = "the multi-GPU slice"
+DIST_BACKEND_ENV = "DRUGLAMP_DIST_BACKEND"     # nccl | gloo; unset: nccl on cards
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -61,8 +76,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--split", default="random", type=str, metavar="S",
                    choices=["random", "cold", "cluster", "Tcpi"], help="split task")
     p.add_argument("--devices", type=str, default=None,
-                   help="accepted for reference-script compatibility; one device "
-                        "(more belong to the multi-GPU slice)")
+                   help="accepted for reference-script compatibility; changes nothing "
+                        "(the process group sets the data-parallel size)")
     p.add_argument("--max_epoch", type=int, default=None)
     p.add_argument("--data-root", type=str, default="datasets",
                    help="directory holding <data>/<split>/*.csv")
@@ -130,17 +145,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def unported_flags(args) -> None:
     """Raise NotImplementedError, naming the slice, for a flag the port does
-    not hold yet."""
-    n_devices = len([d for d in (args.devices or "").split(",") if d.strip()])
-    if args.bn_mode == "per_replica" and n_devices > 1:
-        raise NotImplementedError(f"--bn-mode per_replica over {n_devices} devices belongs to "
-                                  f"{MULTI_GPU_SLICE}")
-    if n_devices > 1:
-        raise NotImplementedError(f"--devices {args.devices!r}: more than one device belongs to "
-                                  f"{MULTI_GPU_SLICE}")
+    not hold yet: tensor parallelism (``--mesh-model`` > 1)."""
     if args.mesh_model > 1:
         raise NotImplementedError(f"--mesh-model {args.mesh_model}: tensor parallelism belongs "
-                                  f"to {MULTI_GPU_SLICE}")
+                                  f"to {TENSOR_PARALLEL_SLICE}")
 
 
 def resolve_split_files(data_root: str, data: str, split: str, rs_task: bool):
@@ -188,6 +196,8 @@ def main(argv=None) -> int:
     from druglamp_tpu_torch.data.device_store import DeviceEmbeddingStore
     from druglamp_tpu_torch.data.loader import BatchLoader
     from druglamp_tpu_torch.models.registry import MODEL_REGISTRY, build_model
+    from druglamp_tpu_torch.parallel.distributed import join_group
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh
     from druglamp_tpu_torch.serve import resolve_device
     from druglamp_tpu_torch.train.trainer import Trainer
     from druglamp_tpu_torch.utils.logging import ExperimentLogger
@@ -197,7 +207,9 @@ def main(argv=None) -> int:
               f"{', '.join(sorted(MODEL_REGISTRY))}", file=sys.stderr)
         return 2
     unported_flags(args)
-    device = resolve_device(args.device)
+    device = resolve_device(join_group(args.device, os.environ.get(DIST_BACKEND_ENV)))
+    mesh = MeshContext(make_mesh(args.mesh_model))
+    primary = mesh.rank == 0
 
     overrides = {"solver.seed": args.seed}
     if args.max_epoch:
@@ -220,7 +232,7 @@ def main(argv=None) -> int:
 
     np.random.seed(cfg.solver.seed)
 
-    timestamp = time.strftime("%m%d_%H%M%S")
+    timestamp = _rank0_value(mesh, time.strftime("%m%d_%H%M%S"))
     exp_name = f"{args.data}-{args.split}-{args.model}-seed{args.seed}-{timestamp}"
     work_dir = args.work_dir or os.path.join(cfg.result.output_dir, exp_name)
     os.makedirs(work_dir, exist_ok=True)
@@ -236,7 +248,7 @@ def main(argv=None) -> int:
         test_file = "target_test.csv" if cfg.rs.task else "test.csv"
         test_ds = DTIDataset(args.data_root, args.data, args.split, test_file, **kw)
         return _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature,
-                          device)
+                          device, mesh)
     train_file, val_file, test_file = resolve_split_files(
         args.data_root, args.data, args.split, cfg.rs.task)
     train_ds = DTIDataset(args.data_root, args.data, args.split, train_file, **kw)
@@ -251,13 +263,15 @@ def main(argv=None) -> int:
         cache = EmbeddingCache(cache_dir, args.data, n_drug_feature, n_prot_feature,
                                dtype=torch.bfloat16)
         if args.gen_embed or args.gen_embed_only:
-            _gen_embed(args, train_ds.table, cache, device)
-            # the LLM widths' sidecar of the reference's workflow
-            # (handler/dataset.py:107-117 writes configs/{n}_layers_params.txt)
-            sidecar = os.path.join(work_dir, f"{args.n_layer}_layers_params.txt")
-            if not os.path.exists(sidecar):
-                with open(sidecar, "w") as f:
-                    f.write(f"{n_drug_feature}\t{n_prot_feature}\n")
+            if primary:
+                _gen_embed(args, train_ds.table, cache, device)
+                # the LLM widths' sidecar of the reference's workflow
+                # (handler/dataset.py:107-117 writes configs/{n}_layers_params.txt)
+                sidecar = os.path.join(work_dir, f"{args.n_layer}_layers_params.txt")
+                if not os.path.exists(sidecar):
+                    with open(sidecar, "w") as f:
+                        f.write(f"{n_drug_feature}\t{n_prot_feature}\n")
+            mesh.barrier()
         if args.gen_embed_only:
             print(f"[gen-embed-only] caches written to {cache_dir}; exiting")
             return 0
@@ -296,7 +310,11 @@ def main(argv=None) -> int:
                               embeddings=embeddings, include_llm=needs_llm,
                               emb_ordinals=use_ords)
 
-    model = build_model(args.model, cfg, n_drug_feature, n_prot_feature)
+    # per_replica: torch DDP's per-rank BatchNorm statistics and CM mining
+    bn_groups = mesh.n_data if cfg.solver.bn_mode == "per_replica" else 1
+    model = build_model(args.model, cfg, n_drug_feature, n_prot_feature, bn_groups=bn_groups)
+    for loader in (train_loader, val_loader, test_loader):
+        loader.cm_groups = bn_groups
 
     device_data = None
     if args.device_data in ("auto", "on"):
@@ -308,19 +326,20 @@ def main(argv=None) -> int:
                   f"{device_data.nbytes() / 1e6:.0f} MB uploaded", file=sys.stderr)
         elif args.device_data == "on":
             print("[info] --device-data on: unsupported loader config "
-                  "(dense LLM batches); using the host pipeline", file=sys.stderr)
+                  "(dense LLM batches or grouped CM); using the host pipeline", file=sys.stderr)
 
     # explicit --work-dir: keep every artifact (metrics.jsonl included) under it
     log_root, log_name = ((os.path.dirname(work_dir) or ".", os.path.basename(work_dir))
                           if args.work_dir else (cfg.result.output_dir, exp_name))
-    logger = ExperimentLogger(
+    logger = None if not primary else ExperimentLogger(
         log_root, log_name,
         hyperparams={"model": args.model, "data": args.data, "split": args.split,
                      "seed": args.seed, "batch_size": bs,
                      "max_epoch": cfg.solver.max_epoch, "lr": cfg.solver.lr,
                      "ssl": cfg.rs.ssl, "cm": cfg.rs.cm,
                      "device_data": device_data is not None,
-                     "train_csv": train_file},
+                     "train_csv": train_file, "ranks": mesh.n_data,
+                     "bn_mode": cfg.solver.bn_mode},
         use_comet=cfg.comet.use and not args.no_comet,
         comet_cfg={"project_name": cfg.comet.project_name,
                    "workspace": cfg.comet.workspace})
@@ -328,11 +347,23 @@ def main(argv=None) -> int:
     trainer = Trainer(model, cfg, train_loader, val_loader, test_loader,
                       logger=logger, work_dir=work_dir,
                       embed_store=store.tree if store is not None else None,
-                      device_data=device_data, device=device)
+                      device_data=device_data, device=device, mesh=mesh)
     metrics = trainer.run_experiment(seed=cfg.solver.seed, resume=args.resume)
-    print({f"test_{k}": round(v, 5) for k, v in metrics.items()})
-    logger.close()
+    if primary:
+        print({f"test_{k}": round(v, 5) for k, v in metrics.items()})
+        logger.close()
     return 0
+
+
+def _rank0_value(mesh, value):
+    """Rank 0's ``value`` on every rank (one work dir for the whole run)."""
+    if mesh.n_data == 1:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0, group=mesh.mesh.group)
+    return box[0]
 
 
 def _gen_embed(args, table, cache, device) -> None:
@@ -345,9 +376,11 @@ def _gen_embed(args, table, cache, device) -> None:
                         chemberta_tokenizer=args.chemberta_tokenizer, device=device)
 
 
-def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, device) -> int:
+def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, device,
+               mesh) -> int:
     """Restore a checkpoint of the port and score the test split through the
-    host pipeline (no training)."""
+    host pipeline (no training; over several ranks each scores its rows and
+    rank 0 writes the record)."""
     from druglamp_tpu_torch.data.cache import EmbeddingCache, ZeroEmbeddings
     from druglamp_tpu_torch.data.loader import BatchLoader
     from druglamp_tpu_torch.models.registry import build_model
@@ -358,7 +391,9 @@ def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, dev
         cache_dir = _cache_dir(args, work_dir, test_ds.table)
         cache = EmbeddingCache(cache_dir, args.data, n_drug_feature, n_prot_feature)
         if args.gen_embed:
-            _gen_embed(args, test_ds.table, cache, device)
+            if mesh.rank == 0:
+                _gen_embed(args, test_ds.table, cache, device)
+            mesh.barrier()
         have_all = (all(cache.has_drug(o) for o in range(test_ds.table.n_drug))
                     and all(cache.has_prot(o) for o in range(test_ds.table.n_prot)))
         if not have_all and not args.allow_zero_embeddings:
@@ -378,7 +413,7 @@ def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, dev
                               drop_last=False, embeddings=embeddings, include_llm=needs_llm)
     model = build_model(args.model, cfg, n_drug_feature, n_prot_feature)
     trainer = Trainer(model, cfg, test_loader, test_loader, test_loader, work_dir=work_dir,
-                      device=device)
+                      device=device, mesh=mesh)
     state = trainer.init_state(seed=cfg.solver.seed)
     if not os.path.exists(args.ckpt):
         print(f"error: checkpoint {args.ckpt!r} not found", file=sys.stderr)
@@ -386,8 +421,9 @@ def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, dev
     state = trainer.restore(os.path.abspath(args.ckpt), state, load_host=False)
     metrics = trainer.evaluate(state, test_loader, full=True)
     record = {f"test_{k}": round(v, 5) for k, v in metrics.items()}
-    print(record)
-    write_eval_record(args, record, n_rows=len(test_ds))
+    if mesh.rank == 0:
+        print(record)
+        write_eval_record(args, record, n_rows=len(test_ds))
     return 0
 
 
@@ -412,4 +448,8 @@ if __name__ == "__main__":
     s = time.time()
     rc = main()
     print(f"Total running time: {round(time.time() - s, 2)}s")
+    import torch.distributed as dist
+
+    if dist.is_initialized():          # a rank under torchrun leaves its group
+        dist.destroy_process_group()
     sys.exit(rc)

@@ -78,10 +78,10 @@ class DeviceDataStore:
 
     @staticmethod
     def supports(loader) -> bool:
-        """The gather path feeds woLLM or ordinal batches; batches that carry
-        the LLM arrays themselves (no ordinal store) stay on the host
-        pipeline."""
-        return not loader.include_llm or loader.emb_ordinals
+        """The gather path feeds woLLM or ordinal batches with on-device CM;
+        batches that carry the LLM arrays themselves (no ordinal store) and
+        grouped CM ground truth stay on the host pipeline."""
+        return loader.cm_groups <= 1 and (not loader.include_llm or loader.emb_ordinals)
 
     @classmethod
     def build(cls, table, max_nodes: int, seq_len: int, include_llm: bool,
@@ -163,11 +163,14 @@ def eval_index_plan(n: int, batch_size: int):
 
 def gather_compact_batch(tree: Dict[str, torch.Tensor], idx: torch.Tensor, valid: torch.Tensor,
                          include_llm: bool, emb_ordinals: bool,
-                         emb_store: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                         emb_store: Optional[Dict[str, Any]] = None,
+                         with_cm: bool = True) -> Dict[str, Any]:
     """(B,) pair indices on the device → the compact batch of those rows,
     gathered from ``tree`` on the device.  LLM models carry the entity
     ordinals (their embeddings come from ``emb_store``); woLLM batches carry
-    ``d_ntok`` = 0 (their embedding source has no rows)."""
+    ``d_ntok`` = 0 (their embedding source has no rows).  ``with_cm``: the
+    CM ground truth of these rows (a caller that mines other rows leaves it
+    out)."""
     dord = tree["pair_drug"].index_select(0, idx)
     pord = tree["pair_prot"].index_select(0, idx)
     batch: Dict[str, Any] = {
@@ -187,5 +190,6 @@ def gather_compact_batch(tree: Dict[str, torch.Tensor], idx: torch.Tensor, valid
         batch["prot_ord"] = pord
     else:
         batch["d_ntok"] = torch.zeros_like(batch["n_atoms"])
-    batch["cm"] = cm_arrays_device(pord, dord, batch["labels"])
+    if with_cm:
+        batch["cm"] = cm_arrays_device(pord, dord, batch["labels"])
     return batch

@@ -6,7 +6,9 @@ batch.
 compact form (``data/encoding.py``): bit-packed adjacency scattered from the
 edge lists, packed node features, scalar fill starts, labels, ``valid``
 (0 on the rows that pad a short batch with its first row) and the ``cm``
-ground truth.  The frozen LLM embeddings ride in one of two ways:
+ground truth (``cm_groups > 1``: one block a contiguous slice of the
+rows, for per-replica mining).  The frozen LLM embeddings ride in one of two
+ways:
 
 - ``emb_ordinals``: the drug and protein ordinals of the pairs
   (``drug_ord``, ``prot_ord``); the step gathers the embeddings from the
@@ -27,8 +29,7 @@ while they fit in ``cache_max_bytes``.
 
 Not ported: the dense assembly and its native packer, f32 LLM arrays, the
 stacked epoch (the port runs one step call per batch, so nothing takes
-stacked chunks), and grouped CM ground truth (``cm_groups > 1``, the
-multi-GPU slice).
+stacked chunks).
 """
 
 from __future__ import annotations
@@ -97,9 +98,6 @@ class BatchLoader:
                  embeddings=None, seed: int = 0, prefetch: int = 2, include_llm: bool = True,
                  cache_max_bytes: int = 2 << 30, emb_ordinals: bool = False,
                  cm_groups: int = 1):
-        if cm_groups > 1:
-            raise NotImplementedError("grouped CM ground truth (cm_groups > 1) belongs to the "
-                                      "multi-GPU slice")
         if emb_ordinals and not include_llm:
             raise ValueError("emb_ordinals requires LLM batches (include_llm)")
         self.ds = dataset
@@ -111,6 +109,9 @@ class BatchLoader:
         self.prefetch = prefetch
         self.include_llm = include_llm
         self.emb_ordinals = emb_ordinals
+        # cm_groups > 1: per-replica CM ground truth, one block a contiguous
+        # slice of the batch (models/cm.py's groups)
+        self.cm_groups = cm_groups
         # unshuffled (eval) loaders assemble the same batches every epoch:
         # keep the first pass's while they fit in cache_max_bytes
         self.cache_batches = not shuffle
@@ -199,11 +200,21 @@ class BatchLoader:
                 batch["xp_len"][b] = lp
 
         batch["valid"] = (np.arange(B) < n_real).astype(np.float32)
-        batch["cm"] = build_cm_arrays(ds.prot_ords[idx], ds.drug_ords[idx], ds.labels[idx])
+        batch["cm"] = self._cm_arrays(idx)
         batch["drug_node_bits"], batch["drug_node_ints"] = pack_node_feats(
             batch["drug_node_feats"])
         del batch["drug_node_feats"]
         return batch
+
+    def _cm_arrays(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        """The batch's CM ground truth; with ``cm_groups > 1`` one block of
+        (B/cm_groups)-long arrays a contiguous slice of the rows, stacked."""
+        ds = self.ds
+        if self.cm_groups <= 1:
+            return build_cm_arrays(ds.prot_ords[idx], ds.drug_ords[idx], ds.labels[idx])
+        per = [build_cm_arrays(ds.prot_ords[b], ds.drug_ords[b], ds.labels[b])
+               for b in np.array_split(idx, self.cm_groups)]
+        return {k: np.stack([p[k] for p in per]) for k in per[0]}
 
     def first_batch(self, epoch: int = 0) -> Dict[str, np.ndarray]:
         """The epoch's first batch, assembled on this thread (no worker is

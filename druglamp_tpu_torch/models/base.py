@@ -10,7 +10,10 @@ Module attribute names are the JAX package's parameter-tree names, so a
 (``uses_llm = False``) builds no LLM adaptors and no x-fusion, and of the SSL
 heads only the protein MLM's ``to_logits``, as the JAX model then creates no
 parameters for the others.  The SSL head shares the ``protein_extractor``
-module itself.
+module itself.  ``bn_groups > 1`` gives every BatchNorm per-replica
+statistics and the CM head per-replica mining (torch DDP's, the JAX
+model's ``bn_groups``); the parameter and buffer names do not change with
+it, so one checkpoint loads in either mode.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ class DrugLAMPBase(nn.Module):
 
     def __init__(self, n_drug_feature: int = 384, n_prot_feature: int = 640,
                  config: Config = Config(), compute_dtype: torch.dtype = torch.float32,
-                 vis: bool = False):
+                 vis: bool = False, bn_groups: int = 1):
         super().__init__()
         cfg = config
+        self.bn_groups = bn_groups
         nh = cfg.n_hidden
         self.n_drug_feature = n_drug_feature
         self.n_prot_feature = n_prot_feature
@@ -51,10 +55,10 @@ class DrugLAMPBase(nn.Module):
 
         self.drug_extractor = MolecularGCN(
             in_feats=cfg.drug.node_in_feats, dim_embedding=nh, hidden_feats=(nh,) * 3,
-            padding=cfg.drug.padding, dtype=dt)
+            padding=cfg.drug.padding, dtype=dt, bn_groups=bn_groups)
         self.protein_extractor = ProteinCNN(
             embedding_dim=nh, num_filters=(nh,) * 3, kernel_size=cfg.protein.kernel_size,
-            padding=cfg.protein.padding, dtype=dt)
+            padding=cfg.protein.padding, dtype=dt, bn_groups=bn_groups)
 
         pmma_cfg = cfg.pmma
         if self.uses_llm:
@@ -84,11 +88,12 @@ class DrugLAMPBase(nn.Module):
 
         dec = cfg.decoder
         self.mlp_classifier = MLPClassifier(in_dim=dec.in_dim * 2, hidden_dim=dec.hidden_dim * 2,
-                                            out_dim=dec.out_dim * 2, binary=dec.binary)
+                                            out_dim=dec.out_dim * 2, binary=dec.binary,
+                                            bn_groups=bn_groups)
 
         self.ssl_model = SSL(self.protein_extractor, n_prot_feature, n_drug_feature, n_hidden=nh,
-                             uses_llm=self.uses_llm)
-        self.cm_model = CrossModality(hidden_size=nh)
+                             uses_llm=self.uses_llm, bn_groups=bn_groups)
+        self.cm_model = CrossModality(hidden_size=nh, groups=bn_groups)
 
     def forward(self, batch: Dict[str, torch.Tensor], need_attn: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
@@ -111,8 +116,9 @@ class DrugLAMPBase(nn.Module):
     def cm_loss(self, cm_inputs: Dict[str, Any], gt_arrays: Dict[str, Any],
                 margin) -> torch.Tensor:
         """The raw triplet loss over the batch's CM ground truth
-        (``gather_compact_batch``'s ``cm``); ``cm_inputs`` from a forward of a
-        model whose ``with_cm_inputs`` is set."""
+        (``gather_compact_batch``'s ``cm``; with ``bn_groups > 1`` one block
+        a group, ``BatchLoader(cm_groups=...)``'s); ``cm_inputs`` from a
+        forward of a model whose ``with_cm_inputs`` is set."""
         with true_f32():
             return self.cm_model(cm_inputs["prot"], cm_inputs["aug_prot"], cm_inputs["drug"],
                                  cm_inputs["aug_drug"], gt_arrays["p_index"],

@@ -1,5 +1,5 @@
 """Cross-modality margin-scheduled triplet loss (port of
-``druglamp_tpu/models/cm.py``, groups=1).
+``druglamp_tpu/models/cm.py``).
 
 The triplet miner is a masked dense computation over the batch's (B, B)
 ground truth (``data/device_data.py::cm_arrays_device``): ``p_index`` /
@@ -18,7 +18,7 @@ each row first and picks the slots' rows by a one-hot product: the same
 values as the JAX module's take-then-mean, and a backward that is a matrix
 product, which sums in a fixed order (``index_select``'s backward adds with
 atomics on a card, so two steps from one seed could differ).  Per-replica
-mining (groups > 1) belongs to the multi-GPU slice and raises.
+mining and mining over several ranks: ``CrossModality``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from druglamp_tpu_torch.nn.layers import Dense, MaskedBatchNorm, _check_groups
+from druglamp_tpu_torch.nn.layers import Dense, MaskedBatchNorm, _local_groups
+from druglamp_tpu_torch.parallel import mesh as dp
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -53,27 +54,54 @@ class Mean2Embed(nn.Module):
 
 
 class CrossModality(nn.Module):
+    """``groups > 1``: per-replica mining (torch DDP's): each of ``groups``
+    contiguous blocks of the batch mines its own triplets from its block of
+    the ground truth ((groups, B/groups) arrays, block-local row indices, as
+    ``BatchLoader(cm_groups=groups)`` builds them), each block's loss over
+    its own triplet count, and the loss is the mean over the blocks; over N
+    ranks each rank holds groups/N blocks.  ``groups == 1`` in a step over
+    several ranks: every rank gathers the pooled streams of every rank's rows
+    (``MeshContext.gather_rows``) and mines the whole batch from its ground
+    truth, so each computes the single program's loss."""
+
     def __init__(self, hidden_size: int = 128, groups: int = 1):
         super().__init__()
-        _check_groups(groups)
         h = hidden_size
-        self.prot2latent = Mean2Embed(h, h)
-        self.aug_prot2latent = Mean2Embed(h, h)
-        self.drug2latent = Mean2Embed(h, h)
-        self.aug_drug2latent = Mean2Embed(h, h)
+        self.groups = groups
+        self.prot2latent = Mean2Embed(h, h, groups)
+        self.aug_prot2latent = Mean2Embed(h, h, groups)
+        self.drug2latent = Mean2Embed(h, h, groups)
+        self.aug_drug2latent = Mean2Embed(h, h, groups)
         self.to_prot_latent = Dense(2 * h, 2 * h, bias=False)
         self.to_drug_latent = Dense(2 * h, 2 * h, bias=False)
 
     def forward(self, prot, aug_prot, drug, aug_drug, p_index, p_valid, d_index, d_valid, gt,
                 margin) -> torch.Tensor:
-        p = self.prot2latent(_rows(prot.mean(dim=1), p_index), p_valid)
-        ap = self.aug_prot2latent(_rows(aug_prot.mean(dim=1), p_index), p_valid)
-        d = self.drug2latent(_rows(drug.mean(dim=1), d_index), d_valid)
-        ad = self.aug_drug2latent(_rows(aug_drug.mean(dim=1), d_index), d_valid)
+        pooled = [s.mean(dim=1) for s in (prot, aug_prot, drug, aug_drug)]
+        ctx = dp.current()
+        if ctx is not None and self.groups == 1:
+            pooled = ctx.gather_rows(torch.cat(pooled, dim=-1)).split(pooled[0].shape[-1], -1)
+        g = p_index.shape[0] if self.groups > 1 else 1
+        if self.groups > 1:
+            # block-local row indices → rows of the flat batch
+            if p_index.dim() != 2 or g != _local_groups(self.groups)[0]:
+                raise ValueError(f"CM ground truth of shape {tuple(p_index.shape)} for "
+                                 f"{self.groups} groups")
+            off = (torch.arange(g, device=p_index.device) * (pooled[0].shape[0] // g))[:, None]
+            p_index, d_index = (p_index + off).reshape(-1), (d_index + off).reshape(-1)
+            p_valid, d_valid = p_valid.reshape(-1), d_valid.reshape(-1)
+        p = self.prot2latent(_rows(pooled[0], p_index), p_valid)
+        ap = self.aug_prot2latent(_rows(pooled[1], p_index), p_valid)
+        d = self.drug2latent(_rows(pooled[2], d_index), d_valid)
+        ad = self.aug_drug2latent(_rows(pooled[3], d_index), d_valid)
 
         p_lats = _l2norm(self.to_prot_latent(torch.cat([p, ap], dim=-1)))
         d_lats = _l2norm(self.to_drug_latent(torch.cat([d, ad], dim=-1)))
-        return triplet_loss(p_lats, d_lats, p_valid, d_valid, gt, margin)
+        if g == 1:
+            return triplet_loss(p_lats, d_lats, p_valid, d_valid, gt.reshape(gt.shape[-2:]),
+                                margin)
+        blocks = zip(p_lats.chunk(g), d_lats.chunk(g), p_valid.chunk(g), d_valid.chunk(g), gt)
+        return torch.stack([triplet_loss(*b, margin) for b in blocks]).mean()
 
 
 def triplet_loss(p_lats: torch.Tensor, d_lats: torch.Tensor, p_valid: torch.Tensor,

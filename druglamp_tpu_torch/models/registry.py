@@ -26,10 +26,13 @@ def get_model_class(name: str) -> Type:
 
 
 def build_model(name: str, cfg: Config, n_drug_feature: int = 384, n_prot_feature: int = 640,
-                vis: bool = False, generator: Optional[torch.Generator] = None):
+                vis: bool = False, generator: Optional[torch.Generator] = None,
+                bn_groups: int = 1):
     """A fresh model on the CPU, its weights drawn from ``generator`` with the
-    reference's initializers."""
+    reference's initializers; ``bn_groups`` > 1 for per-replica BatchNorm
+    statistics and CM mining (``models/base.py``)."""
     model = get_model_class(name)(n_drug_feature=n_drug_feature, n_prot_feature=n_prot_feature,
                                   config=cfg,
-                                  compute_dtype=COMPUTE_DTYPES[cfg.solver.compute_dtype], vis=vis)
+                                  compute_dtype=COMPUTE_DTYPES[cfg.solver.compute_dtype], vis=vis,
+                                  bn_groups=bn_groups)
     return init_model(model, generator)

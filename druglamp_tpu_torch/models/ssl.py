@@ -11,6 +11,11 @@
   a predictor head, stop-gradient targets (``.detach()`` of the same
   projections), negative cosine ×2.  NT-Xent (SimCLR) is the alternative.
 
+Over N ranks (``parallel.mesh.current()``) each rank's loss is such that
+their mean is the global batch's loss: the MLM mean is weighted by the
+global count of masked tokens (``_masked_ce``), SimSiam's mean over equal
+shards needs nothing, and NT-Xent gathers every rank's projections.
+
 The heads compute in f32 (``Dense`` promotes a bf16 input with its f32
 weight, as the JAX package's ``TorchDense`` does); ``_masked_ce`` casts the
 logits to f32.  A model without the LLM stream builds only ``to_logits``
@@ -27,6 +32,7 @@ from torch import nn
 
 from druglamp_tpu_torch.losses import masking
 from druglamp_tpu_torch.nn.layers import Dense, TorchBatchNorm
+from druglamp_tpu_torch.parallel import mesh as dp
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -83,11 +89,18 @@ def nt_xent_loss(queries: torch.Tensor, keys: torch.Tensor,
 
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 0) -> torch.Tensor:
-    """CE over (B, L, V) logits (in f32), mean over the labels != ignore_index."""
+    """CE over (B, L, V) logits (in f32), mean over the labels != ignore_index.
+    In a step over N ranks the mean runs over every rank's labels: each rank
+    returns N · (its sum) / (the global count), whose mean over the ranks is
+    the global mean, as the gradients' mean over the ranks is its gradient."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None].long())[..., 0]
     valid = (labels != ignore_index).float()
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    ctx = dp.current()
+    if ctx is None:
+        return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    count = ctx.all_reduce_sum(valid.sum())
+    return (nll * valid).sum() * ctx.n_data / torch.clamp(count, min=1.0)
 
 
 class SSL(nn.Module):
@@ -138,6 +151,9 @@ class SSL(nn.Module):
     def drug_simclr(self, vd: torch.Tensor, xd: torch.Tensor) -> torch.Tensor:
         queries = self.net(vd.reshape(-1, vd.shape[-1]))
         keys = self.llm_net(xd.reshape(-1, xd.shape[-1]))
+        ctx = dp.current()
+        if ctx is not None:          # every row is every other row's negative
+            queries, keys = ctx.gather_rows(queries), ctx.gather_rows(keys)
         return nt_xent_loss(queries.reshape(queries.shape[0], -1),
                             keys.reshape(keys.shape[0], -1), self.temperature)
 

@@ -8,7 +8,8 @@ or packed (``{"packed", "real"}`` from ``decode_batch(keep_packed=True)``:
 each layer's Â·X runs in ``kernels.gcn.gcn_packed_matmul`` from the bits, and
 Â never exists in memory).  Each layer: aggregate Â·X → graph Linear →
 ReLU, plus the residual ReLU(Linear(x)), then BatchNorm over the flattened
-B·N rows (virtual nodes included, as in the reference).  Products take
+B·N rows (virtual nodes included, as in the reference; ``bn_groups`` as
+``nn/layers.py::TorchBatchNorm``'s ``groups``).  Products take
 operands in the compute dtype and accumulate and return f32.
 """
 
@@ -26,12 +27,13 @@ from druglamp_tpu_torch.nn.layers import Dense, TorchBatchNorm, matmul_f32
 
 
 class GCNLayer(nn.Module):
-    def __init__(self, in_feats: int, out_feats: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, in_feats: int, out_feats: int, dtype: Optional[torch.dtype] = None,
+                 bn_groups: int = 1):
         super().__init__()
         self.compute_dtype = dtype
         self.graph = nn.Linear(in_feats, out_feats)
         self.res_connection = Dense(in_feats, out_feats)
-        self.bn = TorchBatchNorm(out_feats)
+        self.bn = TorchBatchNorm(out_feats, groups=bn_groups)
 
     def forward(self, x: torch.Tensor, adj_norm) -> torch.Tensor:
         """adj_norm: the dense Â, or ``{"packed", "nrm", "n2r"}``."""
@@ -54,7 +56,7 @@ class GCNLayer(nn.Module):
 class MolecularGCN(nn.Module):
     def __init__(self, in_feats: int = 75, dim_embedding: int = 128,
                  hidden_feats: Sequence[int] = (128, 128, 128), padding: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, bn_groups: int = 1):
         super().__init__()
         self.padding = padding
         self.compute_dtype = dtype
@@ -62,7 +64,7 @@ class MolecularGCN(nn.Module):
         self.n_layers = len(hidden_feats)
         width = dim_embedding
         for i, feats in enumerate(hidden_feats):
-            self.add_module(f"layer_{i}", GCNLayer(width, feats, dtype))
+            self.add_module(f"layer_{i}", GCNLayer(width, feats, dtype, bn_groups))
             width = feats
 
     def forward(self, node_feats: torch.Tensor, adj, degrees: torch.Tensor) -> torch.Tensor:

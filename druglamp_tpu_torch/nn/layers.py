@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from druglamp_tpu_torch.nn import inits
+from druglamp_tpu_torch.parallel import mesh as dp
 
 
 class Dense(nn.Linear):
@@ -46,45 +47,108 @@ class Dense(nn.Linear):
                 inits.uniform_(self.bias, inits.fan_in_bound(self.in_features), g)
 
 
-def _check_groups(groups: int) -> None:
-    if groups != 1:
-        raise NotImplementedError("BatchNorm with per-replica statistics (groups > 1) belongs "
-                                  "to the multi-GPU slice")
+def _local_groups(groups: int):
+    """(statistics groups in this rank's rows, the context whose ranks share
+    one set of statistics or None).  ``groups > 1`` splits the global batch
+    into that many contiguous blocks, each with its own statistics (torch
+    DDP's per-replica BatchNorm); with N ranks each rank holds groups/N of
+    them.  ``groups == 1`` under a step over several ranks: one set of
+    statistics over every rank's rows (``parallel.mesh.current()``)."""
+    ctx = dp.current()
+    if groups > 1:
+        world = ctx.n_data if ctx is not None else 1
+        if groups % world:
+            raise ValueError(f"{groups} BatchNorm groups do not divide over {world} ranks")
+        return groups // world, None
+    return 1, ctx
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype every BatchNorm's statistics accumulate in: f64 on a card,
+    where f32 column sums over tens of thousands of rows (the ProteinCNN's
+    B·2304) lose enough that channels of small variance move the gradients
+    beyond the step tolerances (PERF.md, the data-parallel findings); f32 on
+    the CPU, as the JAX package's, which the CPU parity tests hold the port
+    to bit-closely.  ``tests/test_torch_port_parallel.py`` holds the f64
+    path to the JAX step as well."""
+    return torch.float64 if x.is_cuda else torch.float32
+
+
+def _moments(x: torch.Tensor, dim: int):
+    """Mean and biased variance along ``dim`` (accumulated in ``_acc_dtype``),
+    in f32."""
+    xa = x.to(_acc_dtype(x))
+    return xa.mean(dim).float(), xa.var(dim, unbiased=False).float()
+
+
+def _global_moments(xf: torch.Tensor, ctx: dp.MeshContext):
+    """Mean and biased variance of the rows of (n, C) ``xf`` over every rank:
+    each rank's count, mean and sum of squared deviations (in ``_acc_dtype``),
+    all-reduced as one (N, 2C+1) table (``all_reduce_sum``: the gradient
+    reaches every rank's rows) and merged in rank order (Chan's parallel
+    variance), so every rank computes the same statistics."""
+    xa = xf.to(_acc_dtype(xf))
+    mean = xa.mean(0)
+    row = torch.cat([xa.new_full((1,), float(xf.shape[0])), mean, ((xa - mean) ** 2).sum(0)])
+    zeros = row.new_zeros
+    table = ctx.all_reduce_sum(torch.cat([zeros((ctx.rank, row.numel())), row[None],
+                                          zeros((ctx.n_data - ctx.rank - 1, row.numel()))]))
+    C = xf.shape[1]
+    counts, means, m2 = table[:, :1], table[:, 1:C + 1], table[:, C + 1:]
+    total = counts.sum()
+    g_mean = (counts * means).sum(0) / total
+    g_var = (m2.sum(0) + (counts * (means - g_mean) ** 2).sum(0)) / total
+    return g_mean.float(), g_var.float()
 
 
 class TorchBatchNorm(nn.Module):
     """BatchNorm over every axis but the last, in f32 (flax ``nn.BatchNorm`` as
-    ``druglamp_tpu/nn/layers.py::TorchBatchNorm`` configures it, groups=1).
+    ``druglamp_tpu/nn/layers.py::TorchBatchNorm`` configures it).
 
     Eval normalizes with the running stats.  Train normalizes with the biased
-    batch variance and updates the running stats as flax does:
-    ``ra = 0.9·ra + 0.1·batch`` with the *biased* variance.  Returns f32 (flax
-    promotes a bf16 input with the f32 scale/bias).  ``affine=False`` has no
-    scale and bias (SimSiam's last BatchNorm).
+    batch variance (on a card accumulated in f64, ``_moments``) and
+    updates the running stats as flax does:
+    ``ra = 0.9·ra + 0.1·batch`` with the *biased* variance; in a step over
+    several ranks the statistics are those of every rank's rows
+    (``_global_moments``).  ``groups > 1`` (``_GroupedBatchNorm``): each of
+    ``groups`` contiguous blocks of the leading axis normalizes by its own
+    statistics, and the running stats follow block 0 with torch's *unbiased*
+    variance (the rank-0 module torch DDP checkpoints); over N ranks each
+    rank holds groups/N blocks.  Returns f32 (flax promotes a bf16 input
+    with the f32 scale/bias).  ``affine=False`` has no scale and bias
+    (SimSiam's last BatchNorm).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  affine: bool = True, groups: int = 1):
         super().__init__()
-        _check_groups(groups)
         self.eps = eps
         self.momentum = momentum
         self.affine = affine
+        self.groups = groups
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
         xf = x.reshape(-1, shape[-1]).float()
+        if self.groups > 1:
+            return self._grouped(xf).reshape(shape)
         if self.training:
-            mean = xf.mean(0)
-            var = xf.var(0, unbiased=False)
-            with torch.no_grad():
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+            _, ctx = _local_groups(1)
+            if ctx is None:
+                mean, var = _moments(xf, 0)
+            else:
+                mean, var = _global_moments(xf, ctx)
+            self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         if self.affine:
@@ -92,6 +156,21 @@ class TorchBatchNorm(nn.Module):
         else:
             y = (xf - mean) * torch.rsqrt(var + self.eps)
         return y.reshape(shape)
+
+    def _grouped(self, xf: torch.Tensor) -> torch.Tensor:
+        """``druglamp_tpu/nn/layers.py::_GroupedBatchNorm`` on (rows, C)."""
+        if self.training:
+            g, _ = _local_groups(self.groups)
+            if xf.shape[0] % g:
+                raise ValueError(f"{xf.shape[0]} rows do not split into {g} BatchNorm groups")
+            xg = xf.reshape(g, -1, xf.shape[1])
+            mean, var = _moments(xg, 1)
+            y = ((xg - mean[:, None]) * torch.rsqrt(var[:, None] + self.eps)).reshape(xf.shape)
+            n = float(xg.shape[1])
+            self._update(mean[0], var[0] * n / max(n - 1.0, 1.0))
+        else:
+            y = (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return y * self.weight + self.bias if self.affine else y
 
     def init_weights(self, g: Optional[torch.Generator]) -> None:
         with torch.no_grad():
@@ -104,18 +183,23 @@ class TorchBatchNorm(nn.Module):
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over (N, C) whose statistics come from the rows where
-    ``mask`` is set (``druglamp_tpu/nn/layers.py::MaskedBatchNorm``, groups=1):
-    the cross-modality head normalizes the unique-entity rows of a fixed-size
+    ``mask`` is set (``druglamp_tpu/nn/layers.py::MaskedBatchNorm``): the
+    cross-modality head normalizes the unique-entity rows of a fixed-size
     batch.  Train: mean and biased variance over the valid rows (n =
     max(#valid, 1)); running stats ``0.9·ra + 0.1·batch`` with the *unbiased*
-    variance (torch's convention).  Computed and returned in f32."""
+    variance (torch's convention).  ``groups > 1``: per-block statistics
+    over contiguous blocks of the rows, running stats from block 0 (over N
+    ranks each holds groups/N blocks).  Its rows are whatever the caller
+    passes: in a step over several ranks the cross-modality head gathers
+    the global batch's rows first (``models/cm.py``), so nothing is reduced
+    here.  Statistics accumulated in ``_acc_dtype``; returned in f32."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True,
                  groups: int = 1):
         super().__init__()
-        _check_groups(groups)
         self.eps = eps
         self.affine = affine
+        self.groups = groups
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
@@ -125,17 +209,23 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            m = mask.float()[:, None]
-            n = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(0) / n
-            var = (((xf - mean) ** 2) * m).sum(0) / n
+            g = _local_groups(self.groups)[0] if self.groups > 1 else 1
+            if xf.shape[0] % g:
+                raise ValueError(f"{xf.shape[0]} rows do not split into {g} BatchNorm groups")
+            xg = xf.reshape(g, -1, xf.shape[1])
+            xa = xg.to(_acc_dtype(xf))
+            m = mask.to(xa.dtype).reshape(g, -1, 1)
+            n = torch.clamp(m.sum(1), min=1.0)                      # (g, 1)
+            mean = (xa * m).sum(1) / n                              # (g, C)
+            var = (((xa - mean[:, None]) ** 2) * m).sum(1) / n
+            n, mean, var = n.float(), mean.float(), var.float()
             with torch.no_grad():
-                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                unbiased = var[0] * n[0] / torch.clamp(n[0] - 1.0, min=1.0)
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean[0])
                 self.running_var.copy_(0.9 * self.running_var + 0.1 * unbiased)
+            y = ((xg - mean[:, None]) * torch.rsqrt(var[:, None] + self.eps)).reshape(xf.shape)
         else:
-            mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
+            y = (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
         if self.affine:
             y = y * self.weight + self.bias
         return y

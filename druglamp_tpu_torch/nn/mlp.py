@@ -25,14 +25,14 @@ class MLPClassifier(nn.Module):
     """in→hidden→hidden→out→binary with GELU + BatchNorm per hidden layer."""
 
     def __init__(self, in_dim: int = 512, hidden_dim: int = 1024, out_dim: int = 256,
-                 binary: int = 1):
+                 binary: int = 1, bn_groups: int = 1):
         super().__init__()
         self.fc1 = Dense(in_dim, hidden_dim)
-        self.bn1 = TorchBatchNorm(hidden_dim)
+        self.bn1 = TorchBatchNorm(hidden_dim, groups=bn_groups)
         self.fc2 = Dense(hidden_dim, hidden_dim)
-        self.bn2 = TorchBatchNorm(hidden_dim)
+        self.bn2 = TorchBatchNorm(hidden_dim, groups=bn_groups)
         self.fc3 = Dense(hidden_dim, out_dim)
-        self.bn3 = TorchBatchNorm(out_dim)
+        self.bn3 = TorchBatchNorm(out_dim, groups=bn_groups)
         self.fc4 = Dense(out_dim, binary)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

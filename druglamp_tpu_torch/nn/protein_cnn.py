@@ -1,7 +1,8 @@
 """Protein CNN encoder (port of ``druglamp_tpu/nn/protein_cnn.py``).
 
 Embedding(27 → embedding_dim-1, pad id 0 pinned to zeros) ‖ fill-bit, then
-3 × [Conv1d 'same' → ReLU → BatchNorm (f32)].  Public layout is (B, L, C).
+3 × [Conv1d 'same' → ReLU → BatchNorm (f32; ``bn_groups`` as
+``nn/layers.py::TorchBatchNorm``'s ``groups``)].  Public layout is (B, L, C).
 The reference's one-hot matmul gives a zero row for an id outside the
 vocabulary; the gather here masks those ids to the same zero row.  'same'
 padding is asymmetric for even kernels (left (k-1)//2, right k//2), so k=6
@@ -46,7 +47,7 @@ class _OneHotEmbedding(torch.autograd.Function):
 class ProteinCNN(nn.Module):
     def __init__(self, embedding_dim: int = 128, num_filters: Sequence[int] = (128, 128, 128),
                  kernel_size: Sequence[int] = (3, 6, 9), padding: bool = True,
-                 vocab: int = 27, dtype: Optional[torch.dtype] = None):
+                 vocab: int = 27, dtype: Optional[torch.dtype] = None, bn_groups: int = 1):
         super().__init__()
         self.padding = padding
         self.vocab = vocab
@@ -56,7 +57,7 @@ class ProteinCNN(nn.Module):
         in_ch = embedding_dim
         for i, (filters, k) in enumerate(zip(num_filters, kernel_size)):
             self.add_module(f"conv{i + 1}", nn.Conv1d(in_ch, filters, k))
-            self.add_module(f"bn{i + 1}", TorchBatchNorm(filters))
+            self.add_module(f"bn{i + 1}", TorchBatchNorm(filters, groups=bn_groups))
             in_ch = filters
 
     def forward(self, v: torch.Tensor, fill_mask: torch.Tensor) -> torch.Tensor:

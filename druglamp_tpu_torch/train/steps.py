@@ -70,9 +70,10 @@ import torch
 from torch import nn
 
 from druglamp_tpu_torch.data.cache import BF16_HOST, bf16_tensor
-from druglamp_tpu_torch.data.device_data import gather_compact_batch
+from druglamp_tpu_torch.data.device_data import cm_arrays_device, gather_compact_batch
 from druglamp_tpu_torch.data.encoding import decode_batch
 from druglamp_tpu_torch.losses.classification import binary_cross_entropy, cross_entropy_logits
+from druglamp_tpu_torch.parallel.mesh import MeshContext, current, replicas
 from druglamp_tpu_torch.serve import resolve_device
 from druglamp_tpu_torch.train.state import TrainState, apply_optimizer
 from druglamp_tpu_torch.utils.numerics import train_numerics
@@ -157,52 +158,81 @@ def _calibrate(cm_loss: torch.Tensor, cls_loss: torch.Tensor, w: torch.Tensor) -
     return torch.where(cm_loss > 0, w, w0)
 
 
+def _replicas(mesh: Optional[MeshContext]) -> Optional[MeshContext]:
+    """``mesh`` when it spans more than one rank, else None."""
+    return mesh if mesh is not None and mesh.n_data > 1 else None
+
+
 def loss_gradients(model: nn.Module, batch: Dict[str, Any], generator: Optional[torch.Generator],
                    use_ssl: bool, use_cm: bool, calibrate: bool, margin: float,
-                   cm_weight: torch.Tensor, n_class: int = 1):
+                   cm_weight: torch.Tensor, n_class: int = 1,
+                   mesh: Optional[MeshContext] = None):
     """The first half of a train step on a decoded batch: one train-mode
     forward, the active losses in the order cls, ssl, cm, and one gradient
     per active loss at the current parameters → (cls_loss, ssl_loss, cm_loss
     (the raw loss times the weight), probs, weight, {"cls" | "ssl" | "cm":
     one gradient per parameter of ``model.parameters()``, zeros where the
     loss does not reach; the CM gradient times the weight}).  Losses that are
-    off are 0."""
+    off are 0.
+
+    Over the ranks of ``mesh`` (default: the ``parallel.mesh.replicas``
+    context the caller runs it under) the batch is this rank's rows: the forward
+    and backward run under ``parallel.mesh.replicas`` (global BatchNorm
+    statistics, the MLM count and the CM mining of the global batch, or
+    per-replica ones with ``model.bn_groups``), each rank's losses are such
+    that their mean over the ranks is the global batch's, and the values
+    returned are the global ones: the losses averaged over the ranks (the
+    calibration sees those), the probabilities gathered in rank order, the
+    gradient lists averaged (``MeshContext.all_reduce_grads``)."""
+    ctx = _replicas(mesh) if mesh is not None else current()
     params = list(model.parameters())
-    out = model(batch, generator=generator)
-    probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
-    zero = torch.zeros((), device=cls_loss.device)
-    active = [("cls", cls_loss)]
-    ssl_loss = cm_raw = zero
-    if use_ssl:
-        ssl = model.ssl_loss(out["ssl_inputs"], generator)
-        ssl_loss = (ssl["prot_ssl"] + ssl["drug_ssl"]) * 0.1
-        active.append(("ssl", ssl_loss))
-    if use_cm:
-        cm_raw = model.cm_loss(out["cm_inputs"], batch["cm"], margin)
-        active.append(("cm", cm_raw))
-    w = _calibrate(cm_raw.detach(), cls_loss.detach(), cm_weight) if calibrate else cm_weight
-    grads = {}
-    for i, (name, loss) in enumerate(active):
-        grads[name] = torch.autograd.grad(loss, params, retain_graph=i + 1 < len(active),
-                                          allow_unused=True, materialize_grads=True)
+    with replicas(ctx):
+        out = model(batch, generator=generator)
+        probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
+        zero = torch.zeros((), device=cls_loss.device)
+        active = [("cls", cls_loss)]
+        ssl_loss = cm_raw = zero
+        if use_ssl:
+            ssl = model.ssl_loss(out["ssl_inputs"], generator)
+            ssl_loss = (ssl["prot_ssl"] + ssl["drug_ssl"]) * 0.1
+            active.append(("ssl", ssl_loss))
+        if use_cm:
+            cm_raw = model.cm_loss(out["cm_inputs"], batch["cm"], margin)
+            active.append(("cm", cm_raw))
+        values = [cls_loss.detach(), ssl_loss.detach(), cm_raw.detach()]
+        if ctx is not None:
+            values = list((ctx.all_reduce_sum(torch.stack(values)) / ctx.n_data).unbind())
+            probs = ctx.gather_rows(probs.detach())
+        cls_v, ssl_v, cm_v = values
+        w = _calibrate(cm_v, cls_v, cm_weight) if calibrate else cm_weight
+        grads = {}
+        for i, (name, loss) in enumerate(active):
+            grads[name] = torch.autograd.grad(loss, params, retain_graph=i + 1 < len(active),
+                                              allow_unused=True, materialize_grads=True)
+    if ctx is not None:
+        grads = ctx.all_reduce_grads(grads)
     if use_cm:
         grads["cm"] = [g * w for g in grads["cm"]]
-    return (cls_loss.detach(), ssl_loss.detach(), (cm_raw * w).detach(), probs.detach(), w,
-            grads)
+    return cls_v, ssl_v, cm_v * w, probs.detach(), w, grads
 
 
 def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool,
-                    grad_mode: str, n_class: int) -> Callable[..., StepOutput]:
+                    grad_mode: str, n_class: int,
+                    mesh: Optional[MeshContext] = None) -> Callable[..., StepOutput]:
     """The single-step transition shared by ``make_train_step`` and
     ``make_epoch_step_gather``: ``body(state, batch, generator, lr_cls,
     lr_ssl, lr_cm, margin, cm_weight)`` on a batch of tensors on the model's
     device (an embedding store rides in ``batch["_store"]``); ``cm_weight``
-    a float or a device scalar, returned as a device scalar."""
+    a float or a device scalar, returned as a device scalar.  Over the ranks
+    of ``mesh`` the batch is this rank's rows (``loss_gradients``); with
+    per-replica statistics (``model.bn_groups > 1``) rank 0's BatchNorm
+    running stats, those of block 0, go to every rank after the step."""
     if grad_mode not in GRAD_MODES:
         raise ValueError(f"grad_mode {grad_mode!r}: expected one of {GRAD_MODES}")
     if use_cm and not model.with_cm_inputs:
         raise ValueError(f"{type(model).__name__} returns no CM inputs; the CM loss is "
                          "DrugLAMP2C2P's")
+    ctx = _replicas(mesh)
 
     def step_body(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator],
                   lr_cls: float, lr_ssl: float = 0.0, lr_cm: float = 0.0, margin: float = 0.5,
@@ -213,7 +243,7 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
         if not isinstance(cm_weight, torch.Tensor):
             cm_weight = torch.full((), float(cm_weight), device=dev)
         model.train()
-        with train_numerics():
+        with train_numerics(), replicas(ctx):
             cls_loss, ssl_loss, cm_loss, probs, w, grads = loss_gradients(
                 model, batch, generator, use_ssl, use_cm, calibrate,
                 float(np.float32(margin)), cm_weight, n_class)
@@ -226,6 +256,8 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
                     for p, g in zip(model.parameters(), grads[name]):
                         p.grad = g
                     apply_optimizer(opt, lr)
+        if ctx is not None and model.bn_groups > 1:
+            ctx.broadcast_buffers(model)
         state.step += 1
         return StepOutput(state, cls_loss, ssl_loss, cm_loss, probs, w)
 
@@ -233,8 +265,8 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
 
 
 def make_train_step(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool = False,
-                    grad_mode: str = "per_loss", n_class: int = 1,
-                    device="cuda") -> Callable[..., StepOutput]:
+                    grad_mode: str = "per_loss", n_class: int = 1, device="cuda",
+                    mesh: Optional[MeshContext] = None) -> Callable[..., StepOutput]:
     """The per-step train function for one gate combination:
     ``step(state, batch, generator, lr_cls, lr_ssl=0, lr_cm=0, margin=0.5,
     cm_weight=1.0) → StepOutput``.  ``batch`` is a compact or standard
@@ -242,9 +274,12 @@ def make_train_step(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
     its ``cm`` ground truth); ``generator`` draws the dropout masks and then
     the MLM mask (a ``torch.Generator`` on ``device``, or None for torch's
     default).  ``state`` needs ``opt_ssl`` / ``opt_cm`` for the gates in
-    use (``TrainState.create(model, use_ssl, use_cm)``)."""
+    use (``TrainState.create(model, use_ssl, use_cm)``).  Over the ranks of
+    ``mesh`` (``parallel/mesh.py``) ``batch`` is this rank's rows
+    (``MeshContext.shard_batch``; in global mode its ``cm`` is the whole
+    batch's) and the outputs are the global batch's."""
     dev = resolve_device(device)
-    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class)
+    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class, mesh)
     model.to(dev)
 
     def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator],
@@ -286,18 +321,28 @@ def _pregather_embeddings(data_tree: Dict[str, torch.Tensor], emb_store, idx: to
 
 
 def _plan_batches(idx, valid, data_tree, emb_store, include_llm: bool, emb_ordinals: bool,
-                  device: torch.device) -> Iterator[Dict[str, Any]]:
-    """The compact batches of an (S, B) index plan.  The plan's copy to the
-    device and the chunk's pre-gather run now; the returned iterator gathers
-    each step's batch on the device when it is reached."""
+                  device: torch.device, mesh: Optional[MeshContext] = None,
+                  global_cm: bool = False) -> Iterator[Dict[str, Any]]:
+    """The compact batches of an (S, B) index plan, this rank's columns of
+    it over the ranks of ``mesh`` (with ``global_cm`` each batch's CM ground
+    truth is the whole step's).  The plan's copy to the device and the
+    chunk's pre-gather run now; the returned iterator gathers each step's
+    batch on the device when it is reached."""
     plan = to_device({"idx": idx, "valid": valid}, device)
-    idx, valid = plan["idx"], plan["valid"]
+    full = plan["idx"]
+    cols = mesh.rows(full.shape[1]) if mesh is not None else slice(None)
+    idx, valid = full[:, cols], plan["valid"][:, cols]
     pref = _pregather_embeddings(data_tree, emb_store, idx, include_llm and emb_ordinals)
 
     def batches():
         for s in range(idx.shape[0]):
             batch = gather_compact_batch(data_tree, idx[s], valid[s], include_llm, emb_ordinals,
-                                         emb_store)
+                                         emb_store, with_cm=not global_cm)
+            if global_cm:
+                ids = full[s]
+                batch["cm"] = cm_arrays_device(data_tree["pair_prot"].index_select(0, ids),
+                                               data_tree["pair_drug"].index_select(0, ids),
+                                               data_tree["pair_label"].index_select(0, ids))
             if pref is not None:
                 del batch["drug_ord"], batch["prot_ord"]
                 batch.update({k: v[s] for k, v in pref.items()})  # xd/d_ntok/xp_src/xp_len
@@ -311,7 +356,8 @@ def _plan_batches(idx, valid, data_tree, emb_store, include_llm: bool, emb_ordin
 def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, include_llm: bool,
                            emb_ordinals: bool, calibrate: bool = False,
                            grad_mode: str = "per_loss", n_class: int = 1,
-                           device="cuda") -> Callable[..., EpochOutput]:
+                           device="cuda", mesh: Optional[MeshContext] = None
+                           ) -> Callable[..., EpochOutput]:
     """The epoch-chunk driver over the device-resident dataset
     (``data/device_data.py``): ``epoch(state, idx, valid, data_tree,
     emb_store, generator, lr_cls, lr_ssl=0, lr_cm=0, margin=0.5,
@@ -320,9 +366,16 @@ def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, includ
     ``data_tree`` is ``DeviceDataStore.tree_for(dataset)``, ``emb_store`` a
     ``DeviceEmbeddingStore.tree`` or None (woLLM).  The CM weight goes from
     each step to the next on the device; ``EpochOutput.cm_weight`` is the
-    last step's."""
+    last step's.  Over the ranks of ``mesh`` every rank takes the whole plan
+    and gathers its own columns of each step (``MeshContext.rows``), the CM
+    ground truth of the whole step (per-replica mining trains over the host
+    pipeline: ``DeviceDataStore.supports``)."""
     dev = resolve_device(device)
-    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class)
+    ctx = _replicas(mesh)
+    if ctx is not None and use_cm and model.bn_groups > 1:
+        raise ValueError("per-replica CM mining (bn_groups > 1) trains over the host pipeline; "
+                         "the gather epoch mines the whole step")
+    body = _make_step_body(model, use_ssl, use_cm, calibrate, grad_mode, n_class, ctx)
     model.to(dev)
 
     def epoch_step(state: TrainState, idx, valid, data_tree: Dict[str, torch.Tensor],
@@ -330,7 +383,7 @@ def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, includ
                    lr_ssl: float = 0.0, lr_cm: float = 0.0, margin: float = 0.5,
                    cm_weight=1.0) -> EpochOutput:
         batches = _plan_batches(idx, valid, data_tree, emb_store, include_llm, emb_ordinals,
-                                dev)
+                                dev, ctx, global_cm=ctx is not None and use_cm)
         w = (cm_weight if isinstance(cm_weight, torch.Tensor)
              else torch.full((), float(cm_weight), device=dev))
         outs = []
@@ -347,11 +400,15 @@ def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, includ
     return epoch_step
 
 
-def _eval_body(model: nn.Module, n_class: int) -> Callable[[Dict[str, Any]], Any]:
+def _eval_body(model: nn.Module, n_class: int,
+               mesh: Optional[MeshContext] = None) -> Callable[[Dict[str, Any]], Any]:
     """``eval_step(batch) → (probs, loss)`` on a batch of tensors on the
     model's device: eval-mode forward; the loss is the BCE of the logits
     averaged over the rows whose ``valid`` is 1 (all rows when the batch has
-    no ``valid``)."""
+    no ``valid``).  Over the ranks of ``mesh`` the batch is this rank's rows
+    and the results are the global batch's: the probabilities gathered in
+    rank order, the loss over every rank's valid rows."""
+    ctx = _replicas(mesh)
 
     def eval_step(batch: Dict[str, Any]):
         batch = dict(batch)
@@ -365,17 +422,21 @@ def _eval_body(model: nn.Module, n_class: int) -> Callable[[Dict[str, Any]], Any
         labels = batch["labels"].float()
         per = (torch.clamp(logits, min=0.0) - logits * labels
                + torch.log1p(torch.exp(-logits.abs())))
-        loss = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
-        return probs, loss
+        num, den = (per * valid).sum(), valid.sum()
+        if ctx is not None:
+            num, den = ctx.all_reduce_sum(torch.stack([num, den]))
+            probs = ctx.gather_rows(probs)
+        return probs, num / torch.clamp(den, min=1.0)
 
     return eval_step
 
 
-def make_eval_step(model: nn.Module, n_class: int = 1,
-                   device="cuda") -> Callable[[Dict[str, Any]], Any]:
-    """``eval_step(batch) → (probs, loss)`` under ``no_grad`` on ``device``."""
+def make_eval_step(model: nn.Module, n_class: int = 1, device="cuda",
+                   mesh: Optional[MeshContext] = None) -> Callable[[Dict[str, Any]], Any]:
+    """``eval_step(batch) → (probs, loss)`` under ``no_grad`` on ``device``
+    (over the ranks of ``mesh``: ``_eval_body``)."""
     dev = resolve_device(device)
-    body = _eval_body(model, n_class)
+    body = _eval_body(model, n_class, mesh)
     model.to(dev)
 
     @torch.no_grad()
@@ -386,18 +447,21 @@ def make_eval_step(model: nn.Module, n_class: int = 1,
 
 
 def make_eval_scan_gather(model: nn.Module, include_llm: bool, emb_ordinals: bool,
-                          n_class: int = 1, device="cuda") -> Callable[..., Any]:
+                          n_class: int = 1, device="cuda",
+                          mesh: Optional[MeshContext] = None) -> Callable[..., Any]:
     """The eval twin of ``make_epoch_step_gather``: ``eval_scan(idx, valid,
     data_tree, emb_store) → (probs (S, B), losses (S,))`` scores the S
-    index-gathered batches of the plan under ``no_grad``."""
+    index-gathered batches of the plan under ``no_grad`` (over the ranks of
+    ``mesh`` each its own columns, the results the whole plan's)."""
     dev = resolve_device(device)
-    body = _eval_body(model, n_class)
+    ctx = _replicas(mesh)
+    body = _eval_body(model, n_class, ctx)
     model.to(dev)
 
     @torch.no_grad()
     def eval_scan(idx, valid, data_tree: Dict[str, torch.Tensor], emb_store):
         outs = [body(batch) for batch in _plan_batches(idx, valid, data_tree, emb_store,
-                                                       include_llm, emb_ordinals, dev)]
+                                                       include_llm, emb_ordinals, dev, ctx)]
         if not outs:
             raise ValueError("empty index plan")
         return torch.stack([p for p, _ in outs]), torch.stack([l for _, l in outs])

@@ -49,7 +49,17 @@ Per epoch (1-based, as the reference's ``cur_epoch``):
   improvement.
 
 ``run_experiment`` restores ``ckpt_last.pt`` with ``resume=True``, fits,
-then tests on the best state, which the model holds afterwards.  The port's
+then tests on the best state, which the model holds afterwards.
+
+Over the ranks of ``mesh`` (``parallel/mesh.py``, one process a rank, as
+torchrun starts them) each rank trains on its contiguous rows of every
+global batch: the host pipeline copies only those (``_shard``), the gather
+epoch gathers them from the whole plan.  The steps reduce across the ranks,
+so every rank holds the same parameters, losses, CM weight and validation
+metrics (the probabilities are gathered in the single program's order) and
+takes the same early-stopping decisions.  Rank 0 writes the checkpoints;
+every rank restores them.  Each rank draws its own dropout and MLM masks
+from (seed, epoch, rank).  The port's
 initial weights need no example batch (``init_state(seed)``).
 """
 
@@ -69,6 +79,7 @@ from druglamp_tpu_torch.data.device_data import eval_index_plan, train_index_pla
 from druglamp_tpu_torch.eval.metrics import MetricCollector
 from druglamp_tpu_torch.losses.schedules import MarginSchedule
 from druglamp_tpu_torch.nn.inits import init_model
+from druglamp_tpu_torch.parallel.mesh import MeshContext
 from druglamp_tpu_torch.serve import resolve_device
 from druglamp_tpu_torch.train.schedule import cosine_warmup_restarts_lr
 from druglamp_tpu_torch.train.state import TrainState
@@ -83,24 +94,27 @@ class _DevicePrefetch:
     each batch's copy to the device with the steps: the batch is staged in
     pinned memory and copied without blocking, ``depth`` batches in flight
     ahead of the one the caller works on (``store`` rides in the device
-    batch as ``_store``).  Only the calling thread touches the device.  The
+    batch as ``_store``; with ``shard`` only ``shard(host)``, this rank's
+    rows, is copied).  Only the calling thread touches the device.  The
     pinned sources of a batch stay referenced until an event recorded after
     its copies has passed (polled, never waited on), and the rest until
     ``release``, which the caller calls once it has read the epoch's results
     back."""
 
-    def __init__(self, iterator, device: torch.device, store=None, depth: int = 2):
+    def __init__(self, iterator, device: torch.device, store=None, depth: int = 2,
+                 shard=None):
         self.iterator = iterator
         self.device = device
         self.store = store
         self.depth = depth
+        self.shard = shard
         self._held: collections.deque = collections.deque()
 
     def __iter__(self):
         buf: collections.deque = collections.deque()
         for host in self.iterator:
             pinned: list = []
-            dev = to_device(host, self.device, pinned)
+            dev = to_device(self.shard(host) if self.shard else host, self.device, pinned)
             if self.store is not None:
                 dev["_store"] = self.store
             if pinned:
@@ -123,8 +137,13 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, cfg: Config, train_loader, val_loader,
                  test_loader, logger: Optional[ExperimentLogger] = None,
                  work_dir: str = "results/run", embed_store: Optional[Dict[str, Any]] = None,
-                 device_data=None, device="cuda"):
+                 device_data=None, device="cuda", mesh: Optional[MeshContext] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.n_data > 1 else None
+        for loader in (train_loader, val_loader, test_loader):
+            if self.mesh is not None and loader.batch_size % self.mesh.n_data:
+                raise ValueError(f"batch size {loader.batch_size} does not split over "
+                                 f"{self.mesh.n_data} ranks")
         self.model = model.to(self.device)
         self.cfg = cfg
         self.train_loader = train_loader
@@ -166,8 +185,21 @@ class Trainer:
                                          warmup_steps=int(self.epochs * 0.2))
 
     def _generator(self, seed: int, epoch: int) -> torch.Generator:
-        """The epoch's generator, a function of (seed, epoch) alone."""
-        return torch.Generator(device=self.device).manual_seed((seed + 777) * 100003 + epoch)
+        """The epoch's generator, a function of (seed, epoch) alone and over
+        several ranks of the rank too (rank 0 draws as one process does)."""
+        rank = self.mesh.rank if self.mesh is not None else 0
+        return torch.Generator(device=self.device).manual_seed(
+            (seed + 777) * 100003 + epoch + (rank << 40))
+
+    @property
+    def primary(self) -> bool:
+        """This process writes the checkpoints (rank 0, or the only one)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a host batch; in global mode the CM ground
+        truth stays the whole batch's (every rank mines all of it)."""
+        return self.mesh.shard_batch(batch, whole=("cm",) if self.model.bn_groups == 1 else ())
 
     def init_state(self, seed: int) -> TrainState:
         """Fresh weights drawn from ``seed`` (the reference's initializers)
@@ -190,7 +222,7 @@ class Trainer:
         if key not in self._epoch_fns:
             kw = dict(use_ssl=compute_ssl, use_cm=compute_cm, calibrate=calibrate,
                       grad_mode=self.cfg.solver.grad_mode, n_class=self.n_class,
-                      device=self.device)
+                      device=self.device, mesh=self.mesh)
             if self.transport == "gather":
                 fn = make_epoch_step_gather(self.model, include_llm=self.device_data.include_llm,
                                             emb_ordinals=self.device_data.emb_ordinals, **kw)
@@ -298,7 +330,8 @@ class Trainer:
         loop."""
         step_fn = self._epoch_fn(compute_ssl, compute_cm, calibrate)
         gen = self._generator(seed, epoch)
-        feed = _DevicePrefetch(self.train_loader.epoch(epoch), self.device, self.embed_store)
+        feed = _DevicePrefetch(self.train_loader.epoch(epoch), self.device, self.embed_store,
+                               shard=self._shard if self.mesh is not None else None)
         w = torch.full((), float(self.cm_weight), device=self.device)
         outs = []
         with torch.profiler.record_function("trainer.host_epoch"):
@@ -321,8 +354,10 @@ class Trainer:
         if self.transport == "gather":
             return self._evaluate_gather(loader, full)
         if self._eval_fn is None:
-            self._eval_fn = make_eval_step(self.model, n_class=self.n_class, device=self.device)
-        feed = _DevicePrefetch(loader.epoch(0), self.device, self.embed_store)
+            self._eval_fn = make_eval_step(self.model, n_class=self.n_class, device=self.device,
+                                           mesh=self.mesh)
+        feed = _DevicePrefetch(loader.epoch(0), self.device, self.embed_store,
+                               shard=self._shard if self.mesh is not None else None)
         pending = []
         with torch.profiler.record_function("trainer.host_epoch"):
             for host, batch in feed:
@@ -340,7 +375,7 @@ class Trainer:
             self._eval_fn = make_eval_scan_gather(
                 self.model, include_llm=self.device_data.include_llm,
                 emb_ordinals=self.device_data.emb_ordinals, n_class=self.n_class,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         tree = self.device_data.tree_for(loader.ds)
         idx, valid = eval_index_plan(len(loader.ds), loader.batch_size)
         probs, losses = self._eval_fn(idx, valid, tree, self.embed_store)
@@ -397,9 +432,13 @@ class Trainer:
                 "margin": self.margin_sched.state_dict()}
 
     def _save(self, path: str, snapshot: Dict[str, Any]) -> None:
-        tmp = path + ".tmp"
-        torch.save({**snapshot, "host": self._host_state()}, tmp)
-        os.replace(tmp, path)
+        """Rank 0 writes; over several ranks every rank waits until it has."""
+        if self.primary:
+            tmp = path + ".tmp"
+            torch.save({**snapshot, "host": self._host_state()}, tmp)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _load(self, snapshot: Dict[str, Any], state: TrainState) -> None:
         self.model.load_state_dict(snapshot["model"])

@@ -8,8 +8,10 @@
   ``--device`` (default ``cuda``).
 - ``resolve_split_files``, ``_cache_dir`` and ``write_eval_record`` give the
   JAX package's outputs.
-- Each flag whose slice has not come (multi-GPU) raises NotImplementedError
-  naming it; ``--device cuda`` raises without a card.
+- ``--mesh-model`` > 1 (tensor parallelism) raises NotImplementedError
+  naming its slice; ``--devices`` and ``--bn-mode per_replica`` run (over
+  several ranks: tests/test_torch_port_parallel.py); ``--device cuda``
+  raises without a card.
 - ``main`` at a tiny ``--config`` on a CSV dataset written here, ``--device
   cpu``, in the three transports the JAX CLI picks: no cache (host batches
   with zero LLM arrays), a seeded cache with ``--device-data off`` (host
@@ -138,15 +140,22 @@ def test_write_eval_record_matches_jax(tmp_path):
 BASE = ["--model", "DrugLAMP2C2P", "--data", "toy", "--data-root", "unused", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("flags,named,slice_", [
-    (["--mesh-model", "2"], "--mesh-model", cli.MULTI_GPU_SLICE),
-    (["--devices", "0,1"], "--devices", cli.MULTI_GPU_SLICE),
-    (["--bn-mode", "per_replica", "--devices", "0,1"], "--bn-mode", cli.MULTI_GPU_SLICE),
+@pytest.mark.parametrize("flags", [
+    ["--mesh-model", "2"], ["--devices", "0,1"], ["--bn-mode", "per_replica", "--devices", "0,1"],
 ], ids=["mesh-model", "devices", "bn-mode"])
-def test_unported_flags_raise_naming_their_slice(flags, named, slice_):
-    with pytest.raises(NotImplementedError) as e:
-        cli.main(BASE + flags)
-    assert slice_ in str(e.value) and named in str(e.value)
+def test_unported_flags_raise_naming_their_slice(runs, flags, tmp_path):
+    """Tensor parallelism (``--mesh-model`` > 1) raises naming its slice.
+    ``--devices`` and ``--bn-mode per_replica`` (the test's name is from when
+    they raised too) run: in one process the data-parallel size is 1, so
+    either gives the run without it (``nocache``) value for value."""
+    if flags[0] == "--mesh-model":
+        with pytest.raises(NotImplementedError) as e:
+            cli.main(BASE + flags)
+        assert "the tensor-parallel slice" in str(e.value) and "--mesh-model" in str(e.value)
+        return
+    wd = str(tmp_path / "run")
+    assert cli.main(_argv(runs["root"], runs["yaml"], wd) + flags) == 0
+    assert _strip(_records(os.path.join(wd, "metrics.jsonl"))) == _strip(runs["nocache"])
 
 
 def test_per_replica_bn_on_one_device_passes_the_flag_check():

@@ -66,7 +66,9 @@ from druglamp_tpu_torch.nn.layers import MaskedBatchNorm, TorchBatchNorm
 from druglamp_tpu_torch.train import steps as psteps
 from druglamp_tpu_torch.train.schedule import cosine_warmup_restarts_lr
 from druglamp_tpu_torch.train.state import TrainState
-from tests.torch_port_util import ND, NP, build_pair, port_config, tiny_cfg, to_torch
+from tests.torch_port_ranks import fixed_mask as _port_fixed_mask
+from tests.torch_port_util import (ND, NP, build_pair, port_config, random_stats, tiny_cfg,
+                                   to_torch)
 from tools.two_framework_train import _torch_calibrate
 
 LR, LR_SSL, LR_CM, MARGIN, CM_W0 = 1e-4, 3e-5, 3e-5, 0.5, 1e-3
@@ -89,12 +91,6 @@ def _jax_fixed_mask(seq, rng, **kw):
     idx = jnp.arange(seq.shape[1])[None, :]
     mask = (seq != 0) & (idx % 5 == 0)
     return jnp.where(mask, 26, seq), jnp.where(mask, seq, 0), mask
-
-
-def _port_fixed_mask(seq, generator, **kw):
-    idx = torch.arange(seq.shape[1])[None, :]
-    mask = (seq != 0) & (idx % 5 == 0)
-    return torch.where(mask, torch.full_like(seq, 26), seq), torch.where(mask, seq, 0), mask
 
 
 @pytest.fixture
@@ -163,17 +159,64 @@ def test_masked_batchnorm_matches_jax(case):
     np.testing.assert_allclose(port.running_var.numpy(), np.asarray(new["var"]), atol=1e-6)
 
 
+def _grouped_layers(layer):
+    """(JAX module, port module, the port's groups=1 twin, inputs) of one
+    layer with per-replica
+    statistics over 2 groups; the batch's halves differ in distribution."""
+    r = np.random.RandomState(11)
+    if layer == "batchnorm":
+        x = r.randn(8, 5, 12).astype(np.float32)
+        x[4:] = 3.0 * x[4:] + 2.0
+        return JTorchBatchNorm(groups=2), TorchBatchNorm(12, groups=2), TorchBatchNorm(12), (x,)
+    if layer == "masked":
+        x = r.randn(8, 10).astype(np.float32)
+        x[4:] += 4.0
+        mask = np.array([1, 1, 0, 1, 0, 1, 1, 1], bool)
+        return (JMaskedBatchNorm(groups=2), MaskedBatchNorm(10, groups=2), MaskedBatchNorm(10),
+                (x, mask))
+    if layer == "simsiam":
+        x = r.randn(8, 8).astype(np.float32)
+        x[4:] -= 1.5
+        return (jssl.SimSiamMLP(8, hidden_size=16, bn_groups=2),
+                pssl.SimSiamMLP(8, 8, hidden_size=16, bn_groups=2),
+                pssl.SimSiamMLP(8, 8, hidden_size=16), (x,))
+    xs = [r.randn(B, 5, 8).astype(np.float32) for _ in range(4)]
+    halves = [build_cm_arrays(PIDS[s], DIDS[s], LABELS[s]) for s in (slice(0, 3), slice(3, 6))]
+    cm = {k: np.stack([h[k] for h in halves]) for k in halves[0]}
+    args = [cm[k] for k in ("p_index", "p_valid", "d_index", "d_valid", "gt")]
+    return (jcm.CrossModality(hidden_size=8, groups=2), pcm.CrossModality(8, groups=2),
+            pcm.CrossModality(8), (*xs, *args, np.float32(MARGIN)))
+
+
 @pytest.mark.parametrize("layer", ["batchnorm", "masked", "cross_modality", "simsiam"])
 def test_grouped_batchnorm_waits_for_the_multi_gpu_slice(layer):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        if layer == "batchnorm":
-            TorchBatchNorm(4, groups=2)
-        elif layer == "masked":
-            MaskedBatchNorm(4, groups=2)
-        elif layer == "cross_modality":
-            pcm.CrossModality(8, groups=2)
-        else:
-            pssl.SimSiamMLP(8, 8, bn_groups=2)
+    """Per-replica statistics (groups=2; the test kept its name from when the
+    port refused groups > 1): each layer in train mode against the JAX
+    package's with the same weights and running stats, outputs and running
+    stats 1e-6 (the SimSiam MLP's and the CM loss, three products deep,
+    1e-5); its parameter and buffer names are those of groups=1."""
+    jmod, port, twin, ins = _grouped_layers(layer)
+    assert list(port.state_dict()) == list(twin.state_dict())
+    kw = ({"train": True} if layer in ("cross_modality", "simsiam")
+          else {"use_running_average": False})
+    jins = [jnp.asarray(a) for a in ins]
+    v = jmod.init(jax.random.key(0), *jins, **kw)
+    r = np.random.RandomState(12)
+    params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * r.randn(*a.shape).astype(np.float32),
+                          v.get("params", {}))
+    stats = random_stats(v["batch_stats"], r)
+    ref, muts = jmod.apply({"params": params, "batch_stats": stats}, *jins, **kw,
+                           mutable=["batch_stats"])
+    port.load_state_dict(from_jax_params(params, stats, port))
+    got = port.train()(*[torch.from_numpy(np.asarray(a)) for a in ins[:-1]], float(ins[-1])) \
+        if layer == "cross_modality" else port.train()(*map(torch.from_numpy, ins))
+    tol = 1e-5 if layer in ("cross_modality", "simsiam") else 1e-6
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=0, atol=tol)
+    new = _flat(muts["batch_stats"])
+    moved = to_jax_paths(port.state_dict(), port)
+    assert set(new) <= set(moved)
+    for k, want in new.items():
+        np.testing.assert_allclose(moved[k], want, rtol=0, atol=tol, err_msg=k)
 
 
 # --- loss functions -------------------------------------------------------------------

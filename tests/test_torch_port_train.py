@@ -267,30 +267,67 @@ def test_dropout_step_is_reproducible_from_its_seed():
 @pytest.mark.parametrize("case", ["grouped_ssl_bn", "grouped_cm", "grouped_cm_batches",
                                   "grouped_masked_bn", "grad_mode"])
 def test_refuses_what_later_slices_port(case):
-    """The gates themselves are ported (tests/test_torch_port_ssl_cm.py); what
-    stays refused: their per-replica BatchNorm and CM mining (groups > 1, the
-    multi-GPU slice), also in the host batches' CM ground truth
-    (``BatchLoader(cm_groups=2)``), and an unknown grad mode."""
-    from druglamp_tpu_torch.data.loader import BatchLoader
+    """An unknown grad mode is refused.  Per-replica BatchNorm and CM mining
+    (groups > 1) were refused here until the data-parallel slice ported them
+    (tests/test_torch_port_parallel.py holds them to the JAX package); each
+    such case now holds the grouped module to torch DDP's replicas: on two
+    halves of a batch, the same module with groups=1 run on each half
+    (outputs 1e-6, the running stats those of the first half; the CM loss
+    the mean of the halves' losses, rel 1e-6), its state names those of
+    groups=1, and grouped CM host batches stay off the gather path."""
+    from druglamp_tpu_torch.data.device_data import DeviceDataStore
+    from druglamp_tpu_torch.data.loader import BatchLoader, build_cm_arrays
     from druglamp_tpu_torch.models.cm import CrossModality
-    from druglamp_tpu_torch.models.ssl import SSL
+    from druglamp_tpu_torch.models.ssl import SimSiamMLP
+    from druglamp_tpu_torch.nn.inits import init_model
     from druglamp_tpu_torch.nn.layers import MaskedBatchNorm
-    from druglamp_tpu_torch.nn.protein_cnn import ProteinCNN
 
     cfg = tiny_cfg()
     model = port_build_model("DrugLAMPwoLLM", port_config(cfg), ND, NP)
-    err = ValueError if case == "grad_mode" else NotImplementedError
-    with pytest.raises(err):
-        if case == "grouped_ssl_bn":
-            SSL(ProteinCNN(16, (16,) * 3), NP, ND, n_hidden=16, bn_groups=2)
-        elif case == "grouped_cm":
-            CrossModality(16, groups=2)
-        elif case == "grouped_cm_batches":
-            BatchLoader(None, 4, True, True, cm_groups=2)
-        elif case == "grouped_masked_bn":
-            MaskedBatchNorm(16, groups=2)
-        else:
+    if case == "grad_mode":
+        with pytest.raises(ValueError):
             make_train_step(model, False, False, grad_mode="summed", device="cpu")
+        return
+    if case == "grouped_cm_batches":
+        loader = BatchLoader(None, 4, True, True, include_llm=False, cm_groups=2)
+        assert loader.cm_groups == 2 and not DeviceDataStore.supports(loader)
+        return
+    r = np.random.RandomState(3)
+    g = torch.Generator().manual_seed(0)
+    build = {"grouped_ssl_bn": lambda k: SimSiamMLP(16, 8, hidden_size=32, bn_groups=k),
+             "grouped_masked_bn": lambda k: MaskedBatchNorm(16, groups=k),
+             "grouped_cm": lambda k: CrossModality(16, groups=k)}[case]
+    grouped, single = build(2), build(1)
+    assert list(grouped.state_dict()) == list(single.state_dict())
+    init_model(grouped, g)
+    single.load_state_dict(grouped.state_dict())
+    x = torch.from_numpy(r.randn(8, 16).astype(np.float32) + np.repeat([[0.0], [3.0]], 4, 0))
+    if case == "grouped_cm":
+        streams = [torch.from_numpy(r.randn(8, 5, 16).astype(np.float32)) for _ in range(4)]
+        pids, dids = np.array([0, 1, 0, 2, 1, 3, 3, 0]), np.array([0, 0, 1, 2, 3, 1, 4, 2])
+        labels = np.array([1, 0, 0, 0, 1, 0, 1, 0], np.float32)
+        halves = [build_cm_arrays(pids[s], dids[s], labels[s]) for s in (slice(0, 4), slice(4, 8))]
+        keys = ("p_index", "p_valid", "d_index", "d_valid", "gt")
+        stacked = [torch.from_numpy(np.stack([h[k] for h in halves])) for k in keys]
+        got = grouped.train()(*streams, *stacked, 0.5)
+        want = [single.train()(*(s[i * 4:(i + 1) * 4] for s in streams),
+                               *(torch.from_numpy(halves[i][k]) for k in keys), 0.5)
+                for i in range(2)]
+        assert float(got.detach()) == pytest.approx(float(sum(want).detach()) / 2, rel=1e-6)
+        return
+    mask = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1], dtype=torch.bool)
+    args = (lambda rows: (x[rows], mask[rows])) if case == "grouped_masked_bn" else \
+        (lambda rows: (x[rows],))
+    got = grouped.train()(*args(slice(0, 8)))
+    first = single.train()(*args(slice(0, 4)))
+    stats = {k: v.clone() for k, v in single.state_dict().items()}
+    second = single(*args(slice(4, 8)))
+    np.testing.assert_allclose(got.detach().numpy(), torch.cat([first, second]).detach().numpy(),
+                               rtol=0, atol=1e-6)
+    if case == "grouped_masked_bn":        # the unbiased running variance, as groups=1
+        for k in ("running_mean", "running_var"):
+            np.testing.assert_allclose(grouped.state_dict()[k].numpy(), stats[k].numpy(),
+                                       rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("grad_mode", ["per_loss", "legacy_aliased"])
