@@ -66,7 +66,9 @@ printing its own lines; any failure exits non-zero and prints no result:
    and each backward kernel beside its bound, its plain version and the
    yardstick ``F.scaled_dot_product_attention``'s backward, by device time in
    turns kernel, sdpa, sdpa, kernel, with the CUDA-event time of back-to-back
-   calls beside them (its kernels' names show the backend SDPA picked).
+   calls beside them (its kernels' names show the backend SDPA picked); then
+   each attention kernel, forward and backward, at phase 15's model-rank
+   shape (B=16, H=2) by device time beside its plain version and its bound.
 8. packed GCN — ``gcn_packed_matmul`` (``csrc/gcn_packed.cu``) against its
    plain version, forward and backward through its autograd Function, at
    the training (16, 512, 128), eval (64, 512, 128) and small (3, 256, 64),
@@ -178,6 +180,46 @@ printing its own lines; any failure exits non-zero and prints no result:
    and the run resumed from its epoch-1 checkpoints ending with the same
    ``ckpt_last.pt`` bit for bit.
 
+15. model axis — (a) every attention kernel, forward and backward, at a
+   model rank's heads (H = 2 and 1 of 4: --mesh-model 2 and 4) at B = 16 and
+   32, f32 and bf16, against its plain version at phase 3's tolerances (each
+   in bf16 at B = 16, H = 2 is timed in phase 7, in two profiler windows and
+   by CUDA events over calls queued behind a spin kernel, beside its plain
+   version and its bound: the kernel records' ``tp_*`` keys); then two ranks of this
+   script (``--tp-rank``) as one model axis (``--mesh-model 2``, n_data 1),
+   placed as phase 14's: (b) DrugLAMP2C2P's full-gate step at ``Config()``
+   in f32, dropout 0.1 from one generator seed, the fixed MLM mask, tensor
+   parallel (``build_model(mesh=)``: Megatron PMMA and MLP head), its
+   gradients gathered against the one-process step (losses 1e-5, gradients
+   rtol 5e-3 / atol 5e-5, the leaves outside counted), then one step in
+   each grad mode: the replicated leaves bit-identical on both ranks, the
+   gradient each AdamW applied (its first moment, gathered) within the
+   gradient tolerance of the one-process step's, the gathered parameters
+   within AdamW's first-step reach of it; (c) 10 bf16
+   full-gate steps over the model axis: each rank's launches by phase 10's
+   formula, every attention launch at 2 heads, the step by CUDA events, host
+   issue time, the collectives' count, time and share, the GEMM kernels by
+   name (tables in ``chiprun_out/tp_profile_rank<r>.txt``), the row-parallel
+   products of a step timed as run (bf16 GEMMs with an f32 result) and as
+   f32 GEMMs of widened operands, the losses against 10
+   one-process bf16 steps; (d) phase 12's 3-epoch DrugLAMP2C2P recipe
+   through ``cli.main`` with ``--mesh-model 2`` (the gather transport, a
+   seeded cache): metrics identical on both ranks, checkpoints from rank 0
+   only, launches by phase 12's formula, and the records equal to a
+   one-process run of the same flags value for value (host-clock keys left
+   out); (e) ``--gen-embed-only --mesh-model 2`` on 6 proteins and 6 drugs,
+   ESM-2 t30 column-parallel from its seeded random init: the caches within
+   phase 13's tolerances of a one-process run's.
+
+16. leftovers — (a) DrugLAMPwoLLM with ``pmma_variant="linattn"`` at
+   ``Config()``: one bf16 cls step (finite; 4 paired forward and backward
+   launches, no self attention), and in f32, dropout 0, the step through the
+   kernels against the plain attention (loss 1e-5, gradients rtol 5e-3 /
+   atol 5e-5); (b) ``Trainer.fast_dev_run`` on phase 9's data, DrugLAMP2C2P
+   with ssl and cm on: 4 training batches over the host pipeline and the
+   validation pass, finite losses, the launches of its steps and eval
+   batches, nothing written.  The run's total seconds are printed last.
+
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
 if every kernel record came back.
@@ -206,6 +248,7 @@ PROFILE_SETTLE_S = 0.05     # host wait at the end of a profiled block (``profil
 LEAD_IN_CYCLES = 40_000_000  # its lead-in spin kernel: 20 ms at 1.98 GHz
 MARKER_CYCLES = 2_000_000   # ``device_ms``'s marker spin kernel: 1 ms
 PROFILE_RETRIES = []        # windows that ``device_ms`` profiled again
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's kernel names for a GEMM
 START = time.perf_counter()
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -317,17 +360,22 @@ def make_operands(torch, g, B, H, L, S, D, dtype, paired: bool):
     return (q, k, v, rand(L)) if paired else (q, k, v)
 
 
-def kernel_checks(torch, attention):
-    """Phase 3: max |kernel − plain| per case; fails outside tolerance."""
+TRAIN_B = 16                 # the recipe's batch
+FWD_CASES = [  # (B, H, L, S, D, paired): serving, training, then ragged shapes that
+    # cover the other instantiations; self at B=1 (one tile per block) and L ≠ S
+    (32, 4, 256, 256, 64, True), (32, 4, 256, 256, 128, False),
+    (TRAIN_B, 4, 256, 256, 64, True), (TRAIN_B, 4, 256, 256, 128, False),
+    (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
+    (1, 4, 256, 256, 128, False), (2, 3, 200, 130, 128, False), (2, 2, 70, 300, 128, False),
+]
+
+
+def kernel_checks(torch, attention, cases=FWD_CASES):
+    """Phase 3 (and 15 at a model rank's heads): max |kernel − plain| per
+    case; fails outside tolerance → {name: the bf16 error at L=S=256, B=32,
+    H=4} and {(name, B, H): its bf16 error at L=S=256}."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [  # (B, H, L, S, D, paired): serving, training, then ragged shapes that
-        # cover the other instantiations; self at B=1 (one tile per block) and L ≠ S
-        (32, 4, 256, 256, 64, True), (32, 4, 256, 256, 128, False),
-        (TRAIN_B, 4, 256, 256, 64, True), (TRAIN_B, 4, 256, 256, 128, False),
-        (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False),
-        (1, 4, 256, 256, 128, False), (2, 3, 200, 130, 128, False), (2, 2, 70, 300, 128, False),
-    ]
-    serve_err = {}
+    serve_err, errs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, L, S, D, paired in cases:
             ops = make_operands(torch, g, B, H, L, S, D, dtype, paired)
@@ -355,9 +403,11 @@ def kernel_checks(torch, attention):
                   f"{lse_err:.3e} (tol 1e-5)", flush=True)
             if not ok or lse_err > 1e-5:
                 fail(f"{name} disagrees with its plain version at {(B, H, L, S, D)} {dtype}")
-            if dtype == torch.bfloat16 and (B, L, S) == (32, 256, 256):
-                serve_err[name] = err
-    return serve_err
+            if dtype == torch.bfloat16 and (L, S) == (256, 256):
+                errs[(name, B, H)] = err
+                if (B, H) == (32, 4):
+                    serve_err[name] = err
+    return serve_err, errs
 
 
 def plain_lse(torch, ops):
@@ -615,19 +665,22 @@ def serve_timing(torch, predictor, pairs):
         print("    " + line)
 
 
-TRAIN_B = 16                 # the recipe's batch
 TRAIN_STEPS = 10
 TRAIN_LR = 1e-4
 
 
-def backward_checks(torch, attention):
-    """Phase 3, backwards: gradients through the autograd Functions (forward
-    and backward kernels) against the plain backward; fails outside
-    tolerance.  Returns max |err| per kernel at the bf16 training shapes."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    cases = [(TRAIN_B, 4, 256, 256, 64, True), (TRAIN_B, 4, 256, 256, 128, False),
+BWD_CASES = [(TRAIN_B, 4, 256, 256, 64, True), (TRAIN_B, 4, 256, 256, 128, False),
              (2, 3, 37, 70, 128, True), (3, 2, 100, 33, 64, False), (2, 3, 150, 70, 64, True)]
-    train_err = {}
+
+
+def backward_checks(torch, attention, cases=BWD_CASES):
+    """Phase 3 (and 15 at a model rank's heads), backwards: gradients
+    through the autograd Functions (forward and backward kernels) against
+    the plain backward; fails outside tolerance.  Returns max |err| per
+    kernel at the bf16 training shapes (B=TRAIN_B, H=4) and {(name, B, H):
+    max |err| at L=S=256}."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    train_err, errs_at = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, L, S, D, paired in cases:
             ins = make_operands(torch, g, B, H, L, S, D, dtype, paired)
@@ -658,9 +711,11 @@ def backward_checks(torch, attention):
                   flush=True)
             if not ok:
                 fail(f"{name} disagrees with its plain version at {(B, H, L, S, D)} {dtype}")
-            if dtype == torch.bfloat16 and B == TRAIN_B:
-                train_err[name] = max(errs)
-    return train_err
+            if dtype == torch.bfloat16 and (L, S) == (256, 256):
+                errs_at[(name, B, H)] = max(errs)
+                if (B, H) == (TRAIN_B, 4):
+                    train_err[name] = max(errs)
+    return train_err, errs_at
 
 
 def determinism_checks(torch, attention):
@@ -2556,7 +2611,6 @@ def dp_checks(torch, smi):
     torchrun's variables), each on the plan's card, and check what they
     report → the launches of the main path ((b) and (c)) summed over the
     ranks."""
-    import socket
     import tempfile
 
     from druglamp_tpu_torch.config import Config
@@ -2577,40 +2631,7 @@ def dp_checks(torch, smi):
             json.dump({"backend": backend, "device": device, "root": root,
                        "yaml": cli_yaml(root, "DrugLAMP2C2P", FIT_EPOCHS),
                        "steps": len(train) // cfg.solver.batch_size}, f)
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-               "WORLD_SIZE": str(DP_WORLD), "LOCAL_WORLD_SIZE": str(DP_WORLD),
-               "DRUGLAMP_PACKED_GCN": "1", "DRUGLAMP_DIST_BACKEND": backend}
-        logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(DP_WORLD)]
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", root],
-                                  env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO,
-                                  stdout=logs[r], stderr=subprocess.STDOUT)
-                 for r in range(DP_WORLD)]
-        end = time.time() + DP_TIMEOUT_S
-        while any(p.poll() is None for p in procs) and time.time() < end:
-            if any(p.returncode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.5)
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        for r, f in enumerate(logs):
-            f.seek(0)
-            text = f.read()
-            f.close()
-            lines = text.splitlines()
-            for line in (lines if r == 0 or procs[r].returncode else lines[-3:]):
-                print(f"  [rank {r}] {line}", flush=True)
-        if any(p.returncode != 0 for p in procs):
-            fail(f"phase 14: ranks returned {[p.returncode for p in procs]} "
-                 f"(timeout {DP_TIMEOUT_S} s)")
-        outs = []
-        for r in range(DP_WORLD):
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                outs.append(json.load(f))
+        outs = run_ranks("--dp-rank", root, backend, DP_WORLD, DP_TIMEOUT_S, "phase 14")
     first, second = outs
     # a rank's collectives include its wait for the rank that arrives last
     # (NCCL kernels spin on the card meanwhile), so the least reading is the
@@ -2631,6 +2652,47 @@ def dp_checks(torch, smi):
         for k, v in out["launches"].items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+def run_ranks(flag: str, root: str, backend: str, world: int, timeout: float, label: str):
+    """Start ``world`` ranks of this script (``flag <root>``, torchrun's
+    variables), print rank 0's output and the last lines of the others',
+    and fail unless all end with 0 → each rank's ``<root>/rank<r>.json``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+           "DRUGLAMP_PACKED_GCN": "1", "DRUGLAMP_DIST_BACKEND": backend}
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, root],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    end = time.time() + timeout
+    while any(p.poll() is None for p in procs) and time.time() < end:
+        if any(p.returncode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        lines = f.read().splitlines()
+        f.close()
+        for line in (lines if r == 0 or procs[r].returncode else lines[-3:]):
+            print(f"  [rank {r}] {line}", flush=True)
+    if any(p.returncode != 0 for p in procs):
+        fail(f"{label}: ranks returned {[p.returncode for p in procs]} (timeout {timeout} s)")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
 
 
 def dp_fixed_mask(seq, generator, **kw):
@@ -2772,6 +2834,17 @@ def dp_bf16_steps(torch, attention, gcn, mesh, rank, backend):
     if not all(math.isfinite(x) for row in losses for x in row):
         fail("phase 14 b: non-finite losses")
     run = lambda: step(state, shard, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w)   # noqa: E731
+    timing = step_collectives(torch, run, backend, f"dp_profile_rank{rank}.txt", "b")
+    del model, step, state
+    return launches, timing
+
+
+def step_collectives(torch, run, backend: str, table: str, label: str) -> dict:
+    """A step's time by CUDA events (median of 2 × TRAIN_STEPS), its host
+    issue time (DP_ISSUE_STEPS steps), and from one profiled step the
+    kernels' time and the collectives' count, time and share (table in
+    ``chiprun_out/<table>``); prints one line → {"step_ms", "coll_ms",
+    "issue_ms", "n_coll"}."""
     step_ms = time_ms(torch, run, iters=TRAIN_STEPS, reps=2, warmup=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2793,16 +2866,75 @@ def dp_bf16_steps(torch, attention, gcn, mesh, rank, backend):
     busy = sum(e.self_device_time_total for e in device_kernels(torch, averages)) / 1e3
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"dp_profile_rank{rank}.txt"), "w") as f:
+    kernels = device_kernels(torch, averages)
+    gemms = sorted((e for e in kernels if any(w in e.key.lower() for w in GEMM_NAMES)),
+                   key=lambda e: -e.self_device_time_total)
+    gemm_ms = sum(e.self_device_time_total for e in gemms) / 1e3
+    with open(os.path.join(out_dir, table), "w") as f:
         f.write(averages.table(sort_by="cpu_time_total", row_limit=40))
+        f.write("\nBy device time:\n")
+        f.write(averages.table(sort_by="self_device_time_total", row_limit=40))
     coll = dev_coll if backend == "nccl" else host_coll
-    print(f"  b: step {step_ms:.2f} ms (CUDA events, median of 2 x {TRAIN_STEPS}), "
+    print(f"  {label}: step {step_ms:.2f} ms (CUDA events, median of 2 x {TRAIN_STEPS}), "
           f"{TRAIN_B / step_ms * 1e3:.1f} global pairs/s; host issue {issue_ms:.2f} ms a step; "
           f"profiled step: kernels {busy:.2f} ms, {n_coll} collectives {coll:.2f} ms "
           f"({coll / step_ms:.1%} of the step; {backend}: NCCL kernels {dev_coll:.2f} ms, gloo "
           f"threads {host_coll:.2f} ms)", flush=True)
-    del model, step, state
-    return launches, {"step_ms": step_ms, "coll_ms": coll}
+    print(f"  {label}: GEMM kernels {gemm_ms:.2f} ms of the {busy:.2f} ms, by kernel: "
+          + "; ".join(f"{e.key[:64]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in gemms[:8]), flush=True)
+    return {"step_ms": step_ms, "coll_ms": coll, "issue_ms": issue_ms, "n_coll": n_coll,
+            "kernel_ms": busy, "gemm_ms": gemm_ms}
+
+
+def row_parallel_products(torch, model, run, rank) -> dict:
+    """(c) The row-parallel products of one step (forward pre-hooks on the
+    ``Dense`` layers with ``tp_reduce``), each shape's forward and backward
+    timed on rank 0 as the step runs them (``nn/layers.py::partial_product``:
+    bf16 operands, one tensor-core GEMM with an f32 result) and as the f32
+    GEMM of the operands widened from bf16 (``matmul_f32``), by device time,
+    their forwards compared → {"calls", "bf16_ms", "f32_ms"} a step."""
+    from druglamp_tpu_torch.nn import layers
+
+    shapes = {}
+
+    def hook(mod, args):
+        key = (tuple(args[0].shape), tuple(mod.weight.shape))
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if getattr(m, "tp_reduce", None) is not None]
+    run()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    out = {"calls": sum(shapes.values()), "bf16_ms": 0.0, "f32_ms": 0.0}
+    if rank != 0:
+        return out
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    for (xs, ws), n in sorted(shapes.items()):
+        x, w = (torch.randn(sh, generator=g, device=DEVICE).to(torch.bfloat16).requires_grad_()
+                for sh in (xs, ws))
+        dy = torch.randn(xs[:-1] + ws[:1], generator=g, device=DEVICE).to(torch.bfloat16).float()
+        new = lambda: torch.autograd.grad(layers.partial_product(x, w), (x, w), dy)  # noqa: E731
+        old = lambda: torch.autograd.grad(                                          # noqa: E731
+            layers.matmul_f32(x, w.t(), torch.bfloat16), (x, w), dy)
+        with torch.no_grad():
+            a, b = layers.partial_product(x, w), layers.matmul_f32(x, w.t(), torch.bfloat16)
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        bf16_ms, f32_ms = device_ms(torch, new), device_ms(torch, old)
+        out["bf16_ms"] += n * bf16_ms
+        out["f32_ms"] += n * f32_ms
+        print(f"  c: row-parallel product x{tuple(xs)} w{tuple(ws)}, {n} a step: forward and "
+              f"backward {bf16_ms * 1e3:.1f} us as bf16 GEMMs with an f32 result, "
+              f"{f32_ms * 1e3:.1f} us as f32 GEMMs of widened operands; forwards differ by "
+              f"{err:.3e} (max |y| {scale:.1f})", flush=True)
+        if err > 1e-5 * scale:
+            fail(f"phase 15 c: the bf16 row-parallel product lies {err:.3e} from the f32 one")
+    print(f"  c: the {out['calls']} row-parallel products of a step: {out['bf16_ms']:.3f} ms as "
+          f"run (bf16 GEMMs, f32 result) against {out['f32_ms']:.3f} ms as f32 GEMMs of "
+          f"widened operands (device time, forward and backward)", flush=True)
+    return out
 
 
 def dp_cli(torch, attention, gcn, mesh, rank, spec):
@@ -2937,6 +3069,672 @@ def dp_rank(root: str) -> None:
     torch.distributed.destroy_process_group()
 
 
+# --- phase 15: the model axis over two ranks ------------------------------------------------
+
+TP_WORLD = 2
+TP_TIMEOUT_S = 480
+# (B, H, L, S, D, paired) at a model rank's heads: H/M of the 4 at M = 2 and 4
+TP_CASES = [(B, H, 256, 256, D, paired) for B in (TRAIN_B, 32) for H in (2, 1)
+            for D, paired in ((64, True), (128, False))]
+ESM_PROTEINS = 6                 # (e)'s dataset: proteins and drugs for --gen-embed-only
+TIMES = ("t", "epoch_time_s", "pairs_per_s")       # a record's host-clock keys
+
+
+def attention_bound(B, H, L, S, D, paired, backward) -> tuple:
+    """(bound ms, "bytes" | "operations") of one bf16 attention call: each
+    input read once and each output written once over the HBM rate, or its
+    products over the bf16 peak (fwd_timing's and bwd_kernel_record's count)."""
+    n_q = 2 if paired else 1
+    q_elems, kv_elems = B * H * L * D, B * H * S * D
+    if backward:   # q sets, K, V and the incoming gradients in; one gradient per input out
+        bytes_ = 2 * (2 * (n_q * q_elems + 2 * kv_elems) + n_q * q_elems)
+        flops = n_q * 10 * B * H * L * S * D
+    else:
+        bytes_ = 2 * (n_q * q_elems + 2 * kv_elems + n_q * q_elems)
+        flops = n_q * 4 * B * H * L * S * D
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def queued_ms(torch, fn, iters: int = 50, tries: int = 4) -> tuple:
+    """Device time per call of ``fn`` by CUDA events around ``iters`` calls
+    queued behind a lead-in spin kernel, so the card runs them back to back
+    whatever the host's issue time (the gaps between kernels included): a
+    second clock beside the profiler's → (ms, the host's issue time of the
+    ``iters`` calls in ms).  The calls were queued only if the start event,
+    recorded after the spin, is still pending once the host has issued them
+    all; else the host was slower than the spin (a busy host), and the calls
+    are issued again behind a lead-in 4 times longer.  Fails after ``tries``."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = LEAD_IN_CYCLES
+    for attempt in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        queued = not start.query()            # the spin still runs
+        end.record()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters, issue_ms
+        print(f"  (queued_ms, try {attempt + 1}: issuing {iters} calls took {issue_ms:.1f} ms, "
+              f"past the lead-in of {cycles} cycles; again behind one 4 times longer)",
+              flush=True)
+        cycles *= 4
+    fail(f"queued_ms: the host issued {iters} calls slower than the lead-in in {tries} tries")
+
+
+def tp_kernel_times(torch, attention, B: int, H: int) -> dict:
+    """Each attention kernel in bf16 at a model rank's shape (B, H of 4,
+    L=S=256), forward and backward, by the profiler's device time in two
+    windows one after the other and by ``queued_ms``, beside its plain
+    version and its bound → {name: {"ms" (the first window), "ms_again",
+    "queued_ms", "plain_ms", "bound_ms"}}.  Called in phase 7 with the other
+    kernel timings: late in a long run the profiler drops kernel records
+    (read from phase 15, a window once held none)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    out = {}
+    for paired in (True, False):
+        D = 64 if paired else 128
+        ins = make_operands(torch, g, B, H, 256, 256, D, torch.bfloat16, paired)
+        q_o = ins[3] if paired else None
+        dos = [torch.randn(ins[0].shape, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(2 if paired else 1)]
+        outs, lse = attention.launch_forward(*ins[:3], q_o, with_lse=True)
+        fwd = lambda: attention.launch_forward(*ins[:3], q_o)                    # noqa: E731
+        bwd = lambda: attention.launch_backward(*ins[:3], q_o, outs, lse, dos)   # noqa: E731
+        if paired:
+            plain_fwd = lambda: attention.paired_attention_plain(*ins)          # noqa: E731
+            plain_bwd = lambda: attention.paired_attention_bwd_plain(*ins, *dos)  # noqa: E731
+        else:
+            plain_fwd = lambda: attention.self_attention_plain(*ins)            # noqa: E731
+            plain_bwd = lambda: attention.self_attention_bwd_plain(*ins, *dos)  # noqa: E731
+        kind = "paired" if paired else "self"
+        for stage, kernel, plain, own in (
+                ("fwd", fwd, plain_fwd, {"attention_fwd": 1}),
+                ("bwd", bwd, plain_bwd, {"attention_dq": 1, "attention_dkv": 1})):
+            ms, plain_ms = device_ms(torch, kernel, own), device_ms(torch, plain)
+            again = device_ms(torch, kernel, own)
+            queued, issue_ms = queued_ms(torch, kernel)
+            bound_ms, bound_by = attention_bound(B, H, 256, 256, D, paired, stage == "bwd")
+            name = f"{kind}_attention_{stage}"
+            out[name] = {"ms": ms, "ms_again": again, "queued_ms": queued, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms}
+            print(f"  {name} bf16 B={B} H={H} L=S=256 D={D} (a model rank's shape): device "
+                  f"time {ms * 1e3:.2f} us, again {again * 1e3:.2f} us (a second window), "
+                  f"{queued * 1e3:.2f} us by CUDA events over 50 queued calls (issued in "
+                  f"{issue_ms:.1f} ms); plain "
+                  f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+                  f"kernel / bound {ms / bound_ms:.2f}", flush=True)
+    return out
+
+
+def write_small_dataset(root: str):
+    """``<root>/small/random/{train,val,test}.csv``: ESM_PROTEINS proteins of
+    50–1022 residues and as many of SMILES's drugs, one pair each (for the
+    encoders of phase 15 e)."""
+    import numpy as np
+
+    prots = make_proteins(np.random.RandomState(SEED + 15), ESM_PROTEINS)
+    split = os.path.join(root, "small", "random")
+    os.makedirs(split)
+    rows = [f"{SMILES[i % len(SMILES)]},{p},{i % 2}" for i, p in enumerate(prots)]
+    for name in ("train.csv", "val.csv", "test.csv"):
+        with open(os.path.join(split, name), "w") as f:
+            f.write("\n".join(["SMILES,Protein,Y"] + rows) + "\n")
+
+
+def read_records(path: str) -> list:
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(line).items() if k not in TIMES} for line in f]
+
+
+def read_caches(path: str) -> dict:
+    import numpy as np
+
+    return {n: np.load(os.path.join(path, n)) for n in sorted(os.listdir(path))}
+
+
+def tp_checks(torch, attention, smi):
+    """Phase 15: (a) the attention kernels at a model rank's heads, here; then
+    TP_WORLD ranks of this script (``--tp-rank``) as one model axis: (b), (c),
+    (d) and (e), (d) and (e) against one-process runs of the same flags made
+    here first → the launches of the main path ((c) and (d)) summed over the
+    ranks, and (a)'s worst bf16 error per kernel."""
+    import tempfile
+
+    import numpy as np
+
+    from druglamp_tpu_torch.cli import main as cli
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+
+    print(f"  a: the attention kernels at H/M heads of 4 (M = 2, 4), B = {TRAIN_B} and 32, "
+          f"against their plain versions at phase 3's tolerances", flush=True)
+    _, fwd_errs = kernel_checks(torch, attention, TP_CASES)
+    _, bwd_errs = backward_checks(torch, attention, TP_CASES)
+    errs = {}
+    for (name, _, _), e in list(fwd_errs.items()) + list(bwd_errs.items()):
+        errs[name] = max(errs.get(name, 0.0), e)
+    backend, device, how = dp_plan(torch)
+    print(f"  {TP_WORLD} ranks as a model axis (--mesh-model {TP_WORLD}, n_data 1): {how}; card: "
+          f"{smi}", flush=True)
+    torch.cuda.empty_cache()
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"      # the one-process runs, as the ranks'
+
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root)
+        write_small_dataset(root)
+        train = DTIDataset(root, "synthetic", "random", "train.csv", max_nodes=cfg.drug.max_nodes,
+                           max_prot_resis=cfg.protein.max_resis, seq_len=cfg.protein.seq_len)
+        cache = os.path.join(root, "embed_cache")
+        seed_cache(cache, train.table, cfg)
+        yaml_path = cli_yaml(root, "DrugLAMP2C2P", FIT_EPOCHS)
+        spec = {"backend": backend, "device": device, "root": root, "yaml": yaml_path,
+                "steps": len(train) // cfg.solver.batch_size}
+        for work in ("d1", "d2"):
+            os.makedirs(os.path.join(root, work))
+            os.symlink(cache, os.path.join(root, work, "embed_cache"))
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        if cli.main(tp_cli_argv(spec, "d1", DEVICE)) != 0:
+            fail("phase 15 d: the one-process CLI run failed")
+        if cli.main(tp_esm_argv(spec, "e1", DEVICE)) != 0:
+            fail("phase 15 e: the one-process --gen-embed-only run failed")
+        print(f"  d, e: the one-process runs in {time.perf_counter() - t0:.1f} s", flush=True)
+        outs = run_ranks("--tp-rank", root, backend, TP_WORLD, TP_TIMEOUT_S, "phase 15")
+        one, two = (read_records(os.path.join(root, w, "metrics.jsonl")) for w in ("d1", "d2"))
+        caches = [read_caches(os.path.join(root, w, "embed_cache")) for w in ("e1", "e2")]
+    first, second = outs
+    least = min(outs, key=lambda o: o["c"]["coll_ms"])["c"]
+    print(f"  c: collectives {least['coll_ms']:.2f} ms of a {least['step_ms']:.2f} ms step "
+          f"({least['coll_ms'] / least['step_ms']:.1%}) on the rank that waited least; the ranks' "
+          f"readings {[round(o['c']['coll_ms'], 2) for o in outs]} ms", flush=True)
+    if first["d"]["evaluations"] != second["d"]["evaluations"]:
+        fail("phase 15 d: the ranks' validation and test metrics differ")
+    if second["d"]["saves"] or not first["d"]["saves"]:
+        fail(f"phase 15 d: checkpoints written by rank 1 {second['d']['saves']}, by rank 0 "
+             f"{first['d']['saves']}")
+    print(f"  d: the --mesh-model {TP_WORLD} run's {len(two)} records against the one-process "
+          f"run's {len(one)}: {'equal value for value' if one == two else 'DIFFERENT'} (host "
+          f"clock keys left out); metrics identical on both ranks "
+          f"({len(first['d']['evaluations'])} evaluations); checkpoints from rank 0 only "
+          f"({len(first['d']['saves'])} writes)", flush=True)
+    if one != two:
+        fail(f"phase 15 d: the records differ: {[(a, b) for a, b in zip(one, two) if a != b][:2]}")
+    ref, got = caches
+    if sorted(ref) != sorted(got) or not ref:
+        fail(f"phase 15 e: cache files {sorted(got)[:4]} vs {sorted(ref)[:4]}")
+    files = {kind: [n for n in ref if f"_{kind}_" in n] for kind in ("prot", "drug")}
+    cache_err = {kind: max(float(np.abs(got[n] - ref[n]).max()) for n in names)
+                 for kind, names in files.items() if names}
+    if len(cache_err) != 2 or any(got[n].shape != ref[n].shape for n in ref):
+        fail(f"phase 15 e: cache files {sorted(ref)}")
+    print(f"  e: --gen-embed-only --mesh-model {TP_WORLD} (ESM-2 t30 column-parallel, seeded "
+          f"random init; ChemBERTa on rank 0), {len(files['prot'])} protein and "
+          f"{len(files['drug'])} drug caches against the one-process run's: ESM-2 max |Δ| "
+          f"{cache_err['prot']:.3e} (tol {ESM_ATOL:g}), ChemBERTa {cache_err['drug']:.3e} (tol "
+          f"{CB_ATOL:g}); {first['e']['split']} ESM-2 leaves split on each rank", flush=True)
+    if cache_err["prot"] > ESM_ATOL or cache_err["drug"] > CB_ATOL:
+        fail(f"phase 15 e: the sharded caches differ from one process's: {cache_err}")
+    total = {}
+    for out in outs:
+        for k, v in out["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total, errs
+
+
+def tp_cli_argv(spec, work, device, *extra):
+    return ["--model", "DrugLAMP2C2P", "--data", "synthetic", "--split", "random",
+            "--data-root", spec["root"], "--config", spec["yaml"], "--work-dir",
+            os.path.join(spec["root"], work), "--seed", str(SEED), "--no-comet", "--device",
+            device, "--device-data", "auto", *extra]
+
+
+def tp_esm_argv(spec, work, device, *extra):
+    return ["--model", "DrugLAMP2C2P", "--data", "small", "--split", "random", "--data-root",
+            spec["root"], "--work-dir", os.path.join(spec["root"], work), "--seed", str(SEED),
+            "--no-comet", "--device", device, "--n-layer", "30", "--gen-embed-only", *extra]
+
+
+def tp_f32_checks(torch, mesh, rank, split):
+    """(b) DrugLAMP2C2P's full-gate step at ``Config()`` in f32, dropout 0.1
+    (both ranks and the one-process step draw from one generator seed), the
+    fixed MLM mask, a batch of TRAIN_B: the gradients over the model axis,
+    gathered, against the one-process step's (rank 0; losses 1e-5,
+    gradients rtol 5e-3 / atol 5e-5); then one step in each grad mode: the
+    replicated leaves bit-identical on both ranks, the gradient each AdamW
+    applied (its first moment over 1 - beta1, gathered) within the gradient
+    tolerance of the one-process step's, the gathered parameters within
+    AdamW's first-step reach of it (2·lr a loss: a first step moves an entry
+    ±lr whatever its gradient's size)."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import decode_batch
+    from druglamp_tpu_torch.losses import masking
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train import steps
+    from druglamp_tpu_torch.train.state import TrainState
+
+    cfg = Config()
+    cfg32 = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                compute_dtype="float32"))
+    saved, masking.mlm_mask = masking.mlm_mask, dp_fixed_mask
+    batch = full_gate_batch(torch, cfg32)
+    one = torch.ones((), device=DEVICE)
+
+    def model_for(sharded):
+        return build_model("DrugLAMP2C2P", cfg32, generator=torch.Generator().manual_seed(SEED),
+                           mesh=mesh if sharded else None).to(DEVICE).train()
+
+    def grads_of(model):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        with steps.train_numerics():
+            cls, ssl, cm, _, _, g = steps.loss_gradients(model, decode_batch(dict(batch)), gen,
+                                                         True, True, False, MARGIN, one)
+        names = [n for n, _ in model.named_parameters()]
+        return [float(cls), float(ssl), float(cm)], {k: dict(zip(names, v)) for k, v in g.items()}
+
+    model = model_for(True)
+    losses, grads = grads_of(model)
+    grads = {k: mesh.gather_params(model, values=v) for k, v in grads.items()}
+    if rank == 0:
+        ref_losses, ref = grads_of(model_for(False))
+        worst, bad = 0.0, []
+        for loss in ("cls", "ssl", "cm"):
+            for n, r in ref[loss].items():
+                worst = max(worst, (grads[loss][n] - r).abs().max().item())
+                if not torch.allclose(grads[loss][n], r, rtol=5e-3, atol=5e-5):
+                    bad.append((loss, n))
+        dloss = max(abs(a - r) for a, r in zip(losses, ref_losses))
+        print(f"  b: f32 full gate, dropout 0.1, over the model axis ({len(split)} leaves "
+              f"sharded) vs one process: losses {['%.7f' % x for x in losses]} vs "
+              f"{['%.7f' % x for x in ref_losses]}, max |Δ| {dloss:.3e} (tol 1e-5); 3 × "
+              f"{len(ref['cls'])} gradient leaves gathered, max |Δg| {worst:.3e} (rtol 5e-3, "
+              f"atol 5e-5), {len(bad)} outside", flush=True)
+        if bad or dloss > 1e-5:
+            fail(f"phase 15 b: the model axis's step differs from one process: {bad[:5]}")
+        del ref
+    del grads
+    mesh.barrier()
+    lrs = (F32_LR, SSL_LR, CM_LR)
+    for grad_mode in steps.GRAD_MODES:
+        model = model_for(True)
+        state = TrainState.create(model, True, True)
+        step = steps.make_train_step(model, True, True, calibrate=True, grad_mode=grad_mode,
+                                     device=DEVICE)
+        step(state, batch, torch.Generator(device=DEVICE).manual_seed(SEED), *lrs, MARGIN, 1.0)
+        local = model.state_dict()
+        same = dp_same_on_ranks(torch, mesh, [v for k, v in local.items() if k not in split])
+        whole = mesh.gather_params(model)
+        moments = tp_applied_gradients(mesh, model, state)
+        print(f"  b: {grad_mode}: after one step, {len(local) - len(split)} replicated parameters "
+              f"and buffers {'bit-identical' if same else 'DIFFERENT'} on the {TP_WORLD} ranks",
+              flush=True)
+        if not same:
+            fail(f"phase 15 b: {grad_mode}: the ranks' replicated leaves differ after a step")
+        del model, state, step, local
+        if rank == 0:
+            ref_model = model_for(False)
+            ref_state = TrainState.create(ref_model, True, True)
+            ref_step = steps.make_train_step(ref_model, True, True, calibrate=True,
+                                             grad_mode=grad_mode, device=DEVICE)
+            ref_step(ref_state, batch, torch.Generator(device=DEVICE).manual_seed(SEED), *lrs,
+                     MARGIN, 1.0)
+            ref_moments = tp_applied_gradients(mesh, ref_model, ref_state)
+            worst_g, bad = 0.0, []
+            for opt, named in ref_moments.items():
+                for n, r in named.items():
+                    worst_g = max(worst_g, (moments[opt][n] - r).abs().max().item())
+                    if not torch.allclose(moments[opt][n], r, rtol=5e-3, atol=5e-5):
+                        bad.append((opt, n))
+            reach = 2.1 * sum(lrs)
+            diffs = {k: (whole[k].float() - v.float()).abs()
+                     for k, v in ref_model.state_dict().items() if v.is_floating_point()}
+            worst = max(d.max().item() for d in diffs.values())
+            n_far = sum(int((d > 1e-6).sum()) for d in diffs.values())
+            n_all = sum(d.numel() for d in diffs.values())
+            print(f"  b: {grad_mode}: the gradients each AdamW applied (first moment / (1 - "
+                  f"beta1), gathered) vs one process's: 3 x {len(ref_moments['opt_cls'])} "
+                  f"leaves, max |dg| {worst_g:.3e}, {len(bad)} outside rtol 5e-3 / atol 5e-5; "
+                  f"the gathered parameters max |d| {worst:.3e} (AdamW's first-step reach "
+                  f"2*sum(lr) = {reach:.1e}), {n_far} of {n_all} entries beyond 1e-6",
+                  flush=True)
+            if bad or worst > reach:
+                fail(f"phase 15 b: {grad_mode}: the step's update differs from one process's: "
+                     f"{bad[:5]}, parameters {worst:.3e}")
+            del ref_model, ref_state, ref_step, ref_moments
+        del whole, moments
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    masking.mlm_mask = saved
+
+
+def tp_applied_gradients(mesh, model, state) -> dict:
+    """After one step, each AdamW's first moment over 1 - beta1 (the gradient
+    it applied), gathered whole → {optimizer: {name: tensor}}."""
+    from druglamp_tpu_torch.train.state import B1
+
+    out = {}
+    for name in ("opt_cls", "opt_ssl", "opt_cm"):
+        opt = getattr(state, name)
+        named = {n: opt.state[p]["exp_avg"] / (1 - B1) for n, p in model.named_parameters()}
+        out[name] = mesh.gather_params(model, values=named)
+    return out
+
+
+def tp_bf16_steps(torch, attention, gcn, mesh, rank, backend):
+    """(c) TRAIN_STEPS bf16 full-gate steps at ``Config()`` over the model
+    axis, every rank on the whole batch of TRAIN_B and one generator seed:
+    each rank's launches by phase 10's one-process formula, every attention
+    kernel launched at H/M heads; the losses against TRAIN_STEPS one-process
+    bf16 steps (rank 0, after the counts are read); the step by CUDA
+    events, host issue time, the collectives → (launches, timing)."""
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+
+    cfg = Config()
+    batch = full_gate_batch(torch, cfg)
+
+    def run(sharded):
+        model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(SEED),
+                            mesh=mesh if sharded else None)
+        step = make_train_step(model, True, True, calibrate=True, device=DEVICE)
+        state = TrainState.create(model, True, True)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        w, outs = 1e-3, []
+        for _ in range(TRAIN_STEPS):
+            outs.append(step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w))
+            w = outs[-1].cm_weight
+        torch.cuda.synchronize()
+        losses = [[float(getattr(o, k)) for o in outs] for k in ("cls_loss", "ssl_loss",
+                                                                 "cm_loss")]
+        return model, step, state, gen, w, losses
+
+    heads = set()
+    saved = attention.launch_forward, attention.launch_backward
+
+    def fwd(q, *a, **k):
+        heads.add(("fwd", q.shape[1]))
+        return saved[0](q, *a, **k)
+
+    def bwd(q, *a, **k):
+        heads.add(("bwd", q.shape[1]))
+        return saved[1](q, *a, **k)
+
+    reset_counts(attention, gcn)
+    attention.launch_forward, attention.launch_backward = fwd, bwd
+    try:
+        model, step, state, gen, w, losses = run(True)
+    finally:
+        attention.launch_forward, attention.launch_backward = saved
+    launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    want = {k: TRAIN_STEPS * v for k, v in FULL_GATE_PER_STEP.items()}
+    print(f"  c: {TRAIN_STEPS} bf16 full-gate steps over the model axis; rank {rank} launches "
+          f"{launches} (one-process formula {want}); attention heads a launch "
+          f"{sorted(heads)}; cls losses {['%.5f' % x for x in losses[0]]}", flush=True)
+    if launches != want:
+        fail(f"phase 15 c: rank {rank} launches {launches}, expected {want}")
+    if heads != {("fwd", 4 // TP_WORLD), ("bwd", 4 // TP_WORLD)}:
+        fail(f"phase 15 c: attention launched at heads {sorted(heads)}")
+    if not all(math.isfinite(x) for row in losses for x in row):
+        fail("phase 15 c: non-finite losses")
+    timing = step_collectives(
+        torch, lambda: step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w), backend,
+        f"tp_profile_rank{rank}.txt", "c")
+    timing["row_parallel"] = row_parallel_products(
+        torch, model, lambda: step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w), rank)
+    del model, step, state
+    if rank == 0:
+        ref = run(False)[5]
+        diff = [max(abs(a - b) for a, b in zip(x, y)) for x, y in zip(losses, ref)]
+        print(f"  c: against {TRAIN_STEPS} one-process bf16 steps: max |Δ| of the cls, ssl and "
+              f"cm losses {['%.3e' % d for d in diff]} (one-process cls losses "
+              f"{['%.5f' % x for x in ref[0]]})", flush=True)
+        timing["loss_diff"] = diff
+    mesh.barrier()
+    return launches, timing
+
+
+def tp_cli(torch, attention, gcn, mesh, rank, spec):
+    """(d) Phase 12's 3-epoch DrugLAMP2C2P recipe through ``cli.main`` with
+    ``--mesh-model TP_WORLD`` (gather transport, a seeded cache): every
+    evaluation's metrics recorded (the parent compares the ranks', and the
+    records with the one-process run's), each rank's checkpoint writes
+    counted, launches by phase 12's formula."""
+    from druglamp_tpu_torch.cli import main as cli
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.train import trainer as trainer_mod
+
+    Trainer = trainer_mod.Trainer
+    saved = (torch.save, Trainer.evaluate)
+    saves, evaluations = [], []
+
+    def counting_save(obj, path, *a, **k):
+        saves.append(str(path))
+        return saved[0](obj, path, *a, **k)
+
+    def recording_evaluate(self, *a, **k):
+        m = saved[1](self, *a, **k)
+        evaluations.append({k2: float(v) for k2, v in m.items()})
+        return m
+
+    torch.save, Trainer.evaluate = counting_save, recording_evaluate
+    try:
+        reset_counts(attention, gcn)
+        rc = cli.main(tp_cli_argv(spec, "d2", spec["device"], "--mesh-model", str(TP_WORLD)))
+        launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    finally:
+        torch.save, Trainer.evaluate = saved
+    if rc != 0:
+        fail(f"phase 15 d: the CLI returned {rc} on rank {rank}")
+    cfg = Config()
+    with open(os.path.join(spec["root"], "d1", "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "train_loss" in r]
+    gates = [("ssl_loss" in r, "cm_loss" in r) for r in epochs]
+    want = want_launches(gates, spec["steps"], -(-VAL_PAIRS // cfg.solver.eval_batch_size))
+    print(f"  d: rank {rank}: launches {launches} (phase 12's formula {want})", flush=True)
+    if launches != want:
+        fail(f"phase 15 d: launches {launches}, expected {want}")
+    return {"evaluations": evaluations, "saves": saves, "launches": launches}
+
+
+def tp_rank(root: str) -> None:
+    """One rank of phase 15 (``python3 chip_smoke.py --tp-rank <dir>`` with
+    torchrun's variables): (b), (c), (d), (e) → <dir>/rank<r>.json."""
+    global DEVICE
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.kernels import attention, gcn
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.parallel.distributed import join_group
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh, tp_plan
+
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    dev = join_group(spec["device"], spec["backend"])      # the CLI's call
+    DEVICE = str(dev)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshContext(make_mesh(TP_WORLD))
+    rank = dist.get_rank()
+    print(f"rank {rank}: data rank {mesh.rank} of {mesh.n_data}, model rank {mesh.model_rank} of "
+          f"{mesh.n_model} on {DEVICE} ({torch.cuda.get_device_name(dev)}), {spec['backend']}",
+          flush=True)
+    probe = build_model("DrugLAMP2C2P", Config())
+    split = {f"{p}.{k}" for p, s in tp_plan(probe, TP_WORLD).items() for k in s}
+    del probe
+    tp_f32_checks(torch, mesh, rank, split)
+    launches, c = tp_bf16_steps(torch, attention, gcn, mesh, rank, spec["backend"])
+    d = tp_cli(torch, attention, gcn, mesh, rank, spec)
+    e = tp_esm(torch, mesh, rank, spec)
+    total = {k: launches[k] + d["launches"][k] for k in launches}
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump({"c": c, "d": d, "e": e, "launches": total}, f)
+    dist.destroy_process_group()
+
+
+def tp_esm(torch, mesh, rank, spec) -> dict:
+    """(e) ``--gen-embed-only --mesh-model TP_WORLD`` through ``cli.main``
+    (the split that ``generate_embeddings`` applies is recorded; the parent
+    compares the caches), then ESM-2 t30 from the same seeded weights on the
+    small dataset's first batch of the pipeline, f32, column-parallel
+    against whole (rank 0) → {"split": its leaves split, "f32_err"}."""
+    from druglamp_tpu_torch.cli import main as cli
+    from druglamp_tpu_torch.data.dataset import DTIDataset
+    from druglamp_tpu_torch.encoders import embed_pipeline
+    from druglamp_tpu_torch.encoders.esm2 import (ESM2, ESM_PAD, esm2_config_for_layers,
+                                                  esm_tokenize)
+    from druglamp_tpu_torch.encoders.layers import seeded_state
+    from druglamp_tpu_torch.encoders.sharding import shard_encoder
+
+    splits = []
+    saved = embed_pipeline.shard_encoder
+    embed_pipeline.shard_encoder = lambda m, ms: splits.append(saved(m, ms)) or splits[-1]
+    try:
+        rc = cli.main(tp_esm_argv(spec, "e2", spec["device"], "--mesh-model", str(TP_WORLD)))
+    finally:
+        embed_pipeline.shard_encoder = saved
+    if rc != 0 or len(splits) != 1 or not splits[0]:
+        fail(f"phase 15 e: --gen-embed-only returned {rc} on rank {rank}, splits "
+             f"{[len(x) for x in splits]}")
+    table = DTIDataset(spec["root"], "small", "random", "train.csv").table
+    todo = [(o, esm_tokenize(seq, 1022)) for seq, o in table.prot2ord.items()]
+    _, toks, lens = next(embed_pipeline._batched(todo, ENCODER_BATCH, ESM_PAD))
+    cfg = esm2_config_for_layers(30)
+    enc = ESM2(cfg).eval()
+    enc.load_state_dict(seeded_state(enc, 0))
+    whole = ESM2(cfg).eval().to(DEVICE) if rank == 0 else None
+    if whole is not None:
+        whole.load_state_dict(enc.state_dict())
+    shard_encoder(enc, mesh)
+    got = encoder_forward(torch, enc.to(DEVICE), toks, DEVICE)
+    err = (max_row_err(got, encoder_forward(torch, whole, toks, DEVICE), lens)
+           if whole is not None else None)
+    if rank == 0:
+        print(f"  e: ESM-2 t30 column-parallel ({len(splits[0])} leaves split, heads 20 → 10 a "
+              f"rank) against whole, f32, one {toks.shape[0]} × {toks.shape[1]} batch: max |Δ| "
+              f"{err:.3e} (tol {ESM_ATOL:g})", flush=True)
+        if err > ESM_ATOL:
+            fail(f"phase 15 e: the column-parallel ESM-2 lies {err:.3e} from the whole one")
+    del enc, whole
+    return {"split": len(splits[0]), "f32_err": err}
+
+
+# --- phase 16: the leftovers ---------------------------------------------------------------
+
+LINATTN_PER_STEP = {"paired_attention_fwd": 4, "self_attention_fwd": 0,
+                    "paired_attention_bwd": 4, "self_attention_bwd": 0}
+
+
+def linattn_checks(torch, attention):
+    """(a) DrugLAMPwoLLM with ``pmma_variant="linattn"`` at ``Config()``: one
+    bf16 cls step (finite, 4 paired forward and backward launches, no self
+    attention); then in f32 with dropout 0 the step's gradients through the
+    kernels and through the plain attention, from the same weights (losses
+    1e-5, gradients rtol 5e-3 / atol 5e-5) → the bf16 step's launches."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import compact_batch
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+    from druglamp_tpu_torch.utils.synthetic import make_batch
+
+    def run(cfg, plain):
+        model = build_model("DrugLAMPwoLLM", cfg, generator=torch.Generator().manual_seed(SEED),
+                            pmma_variant="linattn")
+        host = make_batch(cfg, TRAIN_B, seed=SEED, n_drug_feature=384, n_prot_feature=640)
+        batch = compact_batch(host, (host["d_fill"] == 0).sum(1))
+        step = make_train_step(model, False, False, device=DEVICE)
+        attention.reset_launch_counts()
+        with plain_attention(attention) if plain else contextlib.nullcontext():
+            out = step(TrainState.create(model), batch,
+                       torch.Generator(device=DEVICE).manual_seed(SEED), TRAIN_LR)
+            loss = float(out.cls_loss)
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        return loss, grads, dict(attention.LAUNCHES)
+
+    cfg = Config()
+    loss, _, launches = run(cfg, False)
+    print(f"  a: linattn, bf16 cls step: loss {loss:.5f}; launches {launches} (want "
+          f"{LINATTN_PER_STEP})", flush=True)
+    if not math.isfinite(loss) or launches != LINATTN_PER_STEP:
+        fail(f"phase 16 a: the linattn step: loss {loss}, launches {launches}")
+    cfg32 = dataclasses.replace(cfg, pmma_dropout=0.0, solver=dataclasses.replace(
+        cfg.solver, compute_dtype="float32"))
+    (l_k, g_k, _), (l_p, g_p, n_p) = run(cfg32, False), run(cfg32, True)
+    bad = [n for n in g_k if not torch.allclose(g_k[n], g_p[n], rtol=5e-3, atol=5e-5)]
+    worst = max((g_k[n] - g_p[n]).abs().max().item() for n in g_k)
+    print(f"  a: linattn, f32, dropout 0, kernels vs plain attention: loss {l_k:.7f} vs "
+          f"{l_p:.7f} (tol 1e-5); {len(g_k)} gradient leaves, max |Δg| {worst:.3e} (rtol 5e-3, "
+          f"atol 5e-5), {len(bad)} outside; the plain run's launches {n_p}", flush=True)
+    if bad or abs(l_k - l_p) > 1e-5 or any(n_p.values()):
+        fail(f"phase 16 a: linattn f32 step differs from its plain-attention run: {bad[:5]}")
+    return launches
+
+
+def fast_dev_checks(torch, attention, gcn, train, val, data, emb):
+    """(b) ``Trainer.fast_dev_run`` on phase 9's data: DrugLAMP2C2P at
+    ``Config()`` with ssl and cm on, FAST_DEV_BATCHES training batches of 16
+    over the host pipeline (the ordinal store), the validation pass over the
+    device-resident dataset; finite losses, the launches of its steps and
+    eval batches, nothing written → the launches."""
+    import dataclasses
+    import tempfile
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.loader import BatchLoader
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.trainer import Trainer
+
+    base = Config()
+    cfg = dataclasses.replace(base, rs=dataclasses.replace(base.rs, ssl=True, cm=True),
+                              solver=dataclasses.replace(base.solver, eval_batch_size=EVAL_B))
+    loaders = (BatchLoader(train, TRAIN_B, shuffle=True, drop_last=True, seed=SEED,
+                           emb_ordinals=True),
+               BatchLoader(val, EVAL_B, shuffle=False, drop_last=False, emb_ordinals=True),
+               BatchLoader(val, EVAL_B, shuffle=False, drop_last=False, emb_ordinals=True))
+    with tempfile.TemporaryDirectory() as work:
+        model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(SEED))
+        t = Trainer(model, cfg, *loaders, work_dir=work, embed_store=emb, device_data=data,
+                    device=DEVICE)
+        reset_counts(attention, gcn)
+        t0 = time.perf_counter()
+        res = t.fast_dev_run(SEED, n_batches=FAST_DEV_BATCHES)
+        wall = time.perf_counter() - t0
+        launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+        written = os.listdir(work)
+    n_eval = -(-len(val) // EVAL_B)
+    want = {k: FAST_DEV_BATCHES * v for k, v in FULL_GATE_PER_STEP.items()}
+    for k, v in CLI_PER_EVAL_BATCH.items():
+        want[k] += n_eval * v
+    print(f"  b: fast_dev_run: {FAST_DEV_BATCHES} batches in {wall:.1f} s, cls losses "
+          f"{['%.5f' % x for x in res['train_losses']]}, val AUROC {res['val_auroc']:.4f}, "
+          f"AUPRC {res['val_auprc']:.4f}, loss {res['val_loss']:.5f}; launches {launches} "
+          f"(want {want}); files written {written}", flush=True)
+    if not all(math.isfinite(x) for x in res["train_losses"]) or written or launches != want:
+        fail(f"phase 16 b: fast_dev_run: {res}, launches {launches}, written {written}")
+    return launches
+
+
+FAST_DEV_BATCHES = 4
+
+
 @contextlib.contextmanager
 def profiling(torch, cpu: bool = False):
     """A profiler window (the card's activity, and the host's with ``cpu``)
@@ -2975,13 +3773,16 @@ def device_ms(torch, fn, own=None, iters: int = 50, warmup: int = 3, tries: int 
     launch in a window (every window, from phase 7 on).  So each window
     opens with one unmeasured call of ``fn`` and a short marker
     ``spin_kernel``, and only the records that start after the marker are
-    read.  A window counts only if it holds every record it should:
-    ``iters`` times the records of one call, counted in a one-call window
-    just before it, and, for the port's kernels, ``own`` {name part: records
-    per call} from the wrapper's ``LAUNCHES`` (``launch_delta``) in both
-    windows.  A window that does not is profiled again, up to ``tries``
-    times, and then the phase fails: no time is scaled, guessed or returned
-    as 0."""
+    read.  A window of ``iters`` calls counts only if it holds every record
+    it should: a window of twice as many calls just after it holds twice its
+    records of every kernel, ``iters`` divides its count, and, for the
+    port's kernels, it holds ``iters`` times ``own`` {name part: records per
+    call} from the wrapper's ``LAUNCHES`` (``launch_delta``).  A lost record
+    breaks the ratio unless both windows lose in it.  (A window of one call
+    is no yardstick: in a long run it has held no record of its call, try
+    after try, while the longer windows held all of theirs.)  A pair that
+    does not is profiled again, up to ``tries`` times, and then the phase
+    fails: no time is scaled, guessed or returned as 0."""
     own = own or {}
     device = torch.autograd.DeviceType.CUDA
 
@@ -3008,20 +3809,19 @@ def device_ms(torch, fn, own=None, iters: int = 50, warmup: int = 3, tries: int 
     torch.cuda.synchronize()
     gc.collect()                      # no earlier profiler's results left alive
     for attempt in range(tries):
-        _, one = profiled(1)
         total, window = profiled(iters)
-        per_call, count = sum(one.values()), sum(window.values())
-        own_one = {n: sum(c for k, c in one.items() if n in k) for n in own}
+        _, double = profiled(2 * iters)
+        count, count2 = sum(window.values()), sum(double.values())
         own_n = {n: sum(c for k, c in window.items() if n in k) for n in own}
-        if (per_call and count == iters * per_call and own_one == own
+        if (count and count % iters == 0 and double == {k: 2 * c for k, c in window.items()}
                 and own_n == {n: iters * k for n, k in own.items()}):
             return total / iters / 1e3
-        PROFILE_RETRIES.append((per_call, count))
-        short = sorted(((iters * one.get(k, 0) - window.get(k, 0), k[:60])
-                        for k in set(one) | set(window)), reverse=True)[:3]
-        print(f"  (device_ms, try {attempt + 1}: {count} kernel records for {iters} calls, one "
-              f"call {per_call}; the port's kernels {own_n} for {own_one} a call, expected "
-              f"{own}; fewest against one call: {short}; profiled again)", flush=True)
+        PROFILE_RETRIES.append((count, count2))
+        short = sorted(((abs(2 * window.get(k, 0) - double.get(k, 0)), k[:60])
+                        for k in set(window) | set(double)), reverse=True)[:3]
+        print(f"  (device_ms, try {attempt + 1}: {count} kernel records for {iters} calls, "
+              f"{count2} for {2 * iters}; the port's kernels {own_n}, expected {own} a call; "
+              f"furthest from twice: {short}; profiled again)", flush=True)
     fail(f"device_ms: the profiler did not return every kernel record in {tries} tries")
 
 
@@ -3137,8 +3937,8 @@ def main() -> None:
               f"{attention.bwd_wgmma_occupancy(D, n_sets)}", flush=True)
 
     phase("3 kernels vs plain")
-    serve_err = kernel_checks(torch, attention)
-    train_err = backward_checks(torch, attention)
+    serve_err, _ = kernel_checks(torch, attention)
+    train_err, _ = backward_checks(torch, attention)
     determinism_checks(torch, attention)
 
     phase("4 serving path")
@@ -3168,6 +3968,7 @@ def main() -> None:
                                   train_launches, train_err["paired_attention_bwd"]),
                 bwd_kernel_record(torch, F, attention, "self_attention_bwd", False,
                                   train_launches, train_err["self_attention_bwd"])]
+    tp_times = tp_kernel_times(torch, attention, TRAIN_B, 4 // TP_WORLD)   # phase 15's shape
     train_timing(torch, attention, model, state, step, batch)
     del model, state, step, batch
 
@@ -3196,7 +3997,6 @@ def main() -> None:
     phase("11 Trainer.fit (the DrugLAMP2C2P recipe)")
     print(f"  card: {smi}", flush=True)
     fit_launches = fit_checks(torch, attention, gcn, train, val, test, data, emb)
-    del train, val, test, data, emb
 
     phase("12 the training CLI (druglamp_tpu_torch.cli.main)")
     print(f"  card: {smi}", flush=True)
@@ -3208,12 +4008,28 @@ def main() -> None:
 
     phase("14 data-parallel training over two ranks")
     dp_launches = dp_checks(torch, smi)
-    for rec in records:        # the launches of the main path, phases 10 to 14 included
+
+    phase("15 the model axis over two ranks (tensor parallelism)")
+    print(f"  card: {smi}", flush=True)
+    tp_launches, tp_errs = tp_checks(torch, attention, smi)
+
+    phase("16 the leftovers (linattn PMMA, Trainer.fast_dev_run)")
+    print(f"  card: {smi}", flush=True)
+    lin_launches = linattn_checks(torch, attention)
+    fdr_launches = fast_dev_checks(torch, attention, gcn, train, val, data, emb)
+    del train, val, test, data, emb
+    later = (gate_launches, fit_launches, cli_launches, enc_launches, dp_launches, tp_launches,
+             lin_launches, fdr_launches)
+    for rec in records:        # the launches of the main path, phases 10 to 16 included
         keys = ([rec["name"]] if rec["name"] != "gcn_packed_matmul"
                 else ["gcn_packed_matmul", "gcn_packed_matmul_bwd"])
-        rec["launches"] += sum(gate_launches[k] + fit_launches[k] + cli_launches.get(k, 0)
-                               + enc_launches.get(k, 0) + dp_launches.get(k, 0) for k in keys)
+        rec["launches"] += sum(run.get(k, 0) for run in later for k in keys)
+        if rec["name"] in tp_times:   # at a model rank's heads (phases 7 and 15 a)
+            rec.update({f"tp_{k}": v for k, v in tp_times[rec["name"]].items()},
+                       tp_max_abs_err=tp_errs[rec["name"]],
+                       tp_shape=f"B={TRAIN_B} H={4 // TP_WORLD} L=S=256")
     print(f"  device_ms: {len(PROFILE_RETRIES)} timing windows profiled again", flush=True)
+    print(f"  total {time.perf_counter() - START:.1f} s", flush=True)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -3222,5 +4038,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         dp_rank(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--tp-rank":
+        tp_rank(sys.argv[2])
     else:
         main()

@@ -36,8 +36,19 @@ batch; ``per_replica`` gives every BatchNorm per-rank statistics and mines
 the CM triplets per rank (torch DDP's semantics; the JAX CLI's
 ``bn_groups``), over the host pipeline.  ``--devices`` is accepted and
 changes nothing: the process group sets the data-parallel size.  Rank 0
-writes the logs and checkpoints.  Tensor parallelism (``--mesh-model`` > 1)
-raises ``NotImplementedError`` naming the tensor-parallel slice.
+writes the logs and checkpoints.
+
+``--mesh-model M`` lays the N ranks out as a (data, model) grid of N/M × M
+(``parallel/mesh.py::make_mesh``; it raises when N does not divide by M, in
+one process too), as the JAX CLI does: the training never shards the model,
+so the model axis only narrows the data axis to N/M, the BatchNorm and CM
+groups follow N/M, and the M ranks of a data group compute the same rows
+and end bit-identical.  ``--gen-embed`` with ``--mesh-model M`` runs ESM-2
+column-parallel over each model group when its weights are a seeded random
+init (``encoders/sharding.py``); checkpoint weights run replicated, as in
+the JAX package.
+
+    torchrun --nproc-per-node 4 -m druglamp_tpu_torch.cli.main --mesh-model 2 ...
 """
 
 from __future__ import annotations
@@ -49,8 +60,6 @@ import sys
 import time
 
 import numpy as np
-
-from druglamp_tpu_torch.parallel import TENSOR_PARALLEL_SLICE
 
 # ESM-2 layer-count → (ChemBERTa hidden, ESM embed dim), per public ESM-2 size
 N_LAYER2DIMS = {
@@ -143,14 +152,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def unported_flags(args) -> None:
-    """Raise NotImplementedError, naming the slice, for a flag the port does
-    not hold yet: tensor parallelism (``--mesh-model`` > 1)."""
-    if args.mesh_model > 1:
-        raise NotImplementedError(f"--mesh-model {args.mesh_model}: tensor parallelism belongs "
-                                  f"to {TENSOR_PARALLEL_SLICE}")
-
-
 def resolve_split_files(data_root: str, data: str, split: str, rs_task: bool):
     """(train, val, test) CSV names for a split.
 
@@ -206,10 +207,9 @@ def main(argv=None) -> int:
         print(f"error: unknown model {args.model!r}; available: "
               f"{', '.join(sorted(MODEL_REGISTRY))}", file=sys.stderr)
         return 2
-    unported_flags(args)
     device = resolve_device(join_group(args.device, os.environ.get(DIST_BACKEND_ENV)))
     mesh = MeshContext(make_mesh(args.mesh_model))
-    primary = mesh.rank == 0
+    primary = mesh.primary
 
     overrides = {"solver.seed": args.seed}
     if args.max_epoch:
@@ -263,8 +263,8 @@ def main(argv=None) -> int:
         cache = EmbeddingCache(cache_dir, args.data, n_drug_feature, n_prot_feature,
                                dtype=torch.bfloat16)
         if args.gen_embed or args.gen_embed_only:
+            _gen_embed(args, train_ds.table, cache, device, mesh)
             if primary:
-                _gen_embed(args, train_ds.table, cache, device)
                 # the LLM widths' sidecar of the reference's workflow
                 # (handler/dataset.py:107-117 writes configs/{n}_layers_params.txt)
                 sidecar = os.path.join(work_dir, f"{args.n_layer}_layers_params.txt")
@@ -356,24 +356,29 @@ def main(argv=None) -> int:
 
 
 def _rank0_value(mesh, value):
-    """Rank 0's ``value`` on every rank (one work dir for the whole run)."""
-    if mesh.n_data == 1:
+    """Rank 0's ``value`` on every rank of the grid (one work dir for the
+    whole run)."""
+    if mesh.n_data * mesh.n_model == 1:
         return value
     import torch.distributed as dist
 
     box = [value]
-    dist.broadcast_object_list(box, src=0, group=mesh.mesh.group)
+    dist.broadcast_object_list(box, src=0, group=mesh.mesh.world)
     return box[0]
 
 
-def _gen_embed(args, table, cache, device) -> None:
+def _gen_embed(args, table, cache, device, mesh) -> None:
     """The frozen encoders' caches for ``table``'s entities (the JAX CLI's
-    call: seed 0, f32)."""
+    call: seed 0, f32), on every rank of the grid: rank 0 writes them (its
+    model group runs ESM-2 tensor-parallel, ``generate_embeddings``), the
+    others wait at a barrier."""
     from druglamp_tpu_torch.encoders.embed_pipeline import generate_embeddings
 
     generate_embeddings(table, cache, n_layer=args.n_layer, esm_ckpt=args.esm_ckpt,
                         chemberta_ckpt=args.chemberta_ckpt,
-                        chemberta_tokenizer=args.chemberta_tokenizer, device=device)
+                        chemberta_tokenizer=args.chemberta_tokenizer, device=device,
+                        mesh=mesh)
+    mesh.barrier()
 
 
 def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, device,
@@ -391,9 +396,7 @@ def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, dev
         cache_dir = _cache_dir(args, work_dir, test_ds.table)
         cache = EmbeddingCache(cache_dir, args.data, n_drug_feature, n_prot_feature)
         if args.gen_embed:
-            if mesh.rank == 0:
-                _gen_embed(args, test_ds.table, cache, device)
-            mesh.barrier()
+            _gen_embed(args, test_ds.table, cache, device, mesh)
         have_all = (all(cache.has_drug(o) for o in range(test_ds.table.n_drug))
                     and all(cache.has_prot(o) for o in range(test_ds.table.n_prot)))
         if not have_all and not args.allow_zero_embeddings:
@@ -421,7 +424,7 @@ def _eval_only(args, cfg, test_ds, work_dir, n_drug_feature, n_prot_feature, dev
     state = trainer.restore(os.path.abspath(args.ckpt), state, load_host=False)
     metrics = trainer.evaluate(state, test_loader, full=True)
     record = {f"test_{k}": round(v, 5) for k, v in metrics.items()}
-    if mesh.rank == 0:
+    if mesh.primary:
         print(record)
         write_eval_record(args, record, n_rows=len(test_ds))
     return 0

@@ -25,6 +25,9 @@ map by ``from_jax_encoder_params``: ``layer_{i}`` → ``layers.{i}``, dense
 ``kernel`` → ``weight`` (transposed), LayerNorm ``scale`` and an Embed's
 ``embedding`` → ``weight``, anything else (a bias, ChemBERTa's
 ``token_type_embedding``) by its own name.
+
+``load_jax_params_sharded`` loads one flax tree into the M ranks of a model
+axis, each keeping its pieces.
 """
 
 from __future__ import annotations
@@ -80,6 +83,15 @@ def from_jax_params(params: Mapping, batch_stats: Mapping, model: nn.Module
     model has no key for, or a model key left unfilled, and ``ValueError`` on
     a shape mismatch."""
     return _state_from_leaves({**_flatten(params), **_flatten(batch_stats)}, model, _map_leaf)
+
+
+def load_jax_params_sharded(params: Mapping, batch_stats: Mapping, model: nn.Module,
+                            mesh) -> Dict[str, str]:
+    """One flax tree into a model axis: ``from_jax_params`` into ``model``
+    (whole, as built on every rank), then ``mesh.shard_params`` keeps this
+    model rank's pieces → the split (``parallel/mesh.py``)."""
+    model.load_state_dict(from_jax_params(params, batch_stats, model))
+    return mesh.shard_params(model)
 
 
 def _map_encoder_leaf(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:

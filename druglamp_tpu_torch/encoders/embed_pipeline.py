@@ -21,6 +21,14 @@ dicts in the port's naming (``esm_params`` / ``chemberta_params``).  With
 neither, an encoder takes seeded random weights (``encoders/layers.py::
 seeded_state``), with a loud warning: such caches carry no pretrained signal,
 and they differ from the JAX package's random-init caches (another RNG).
+
+Over the ranks of a grid (``mesh``, ``parallel/mesh.py``) every rank calls
+it and rank 0 of the grid writes.  With a model axis and seeded random ESM-2
+weights, rank 0's model group runs ESM-2 column-parallel
+(``encoders/sharding.py``), as the JAX package shards a fresh init; ESM-2
+from a checkpoint, ChemBERTa, and everything without a model axis run on
+rank 0 alone, replicated weights.  Every other rank returns at once (the
+caller waits at a barrier of the grid).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from druglamp_tpu_torch.encoders.chemberta import ChemBERTa, ChemBERTaConfig
 from druglamp_tpu_torch.encoders.convert import chemberta_state_from_torch, esm2_state_from_torch
 from druglamp_tpu_torch.encoders.esm2 import ESM2, ESM_PAD, esm2_config_for_layers, esm_tokenize
 from druglamp_tpu_torch.encoders.layers import seeded_state
+from druglamp_tpu_torch.encoders.sharding import shard_encoder
 from druglamp_tpu_torch.serve import resolve_device
 from druglamp_tpu_torch.utils.numerics import true_f32
 
@@ -140,7 +149,7 @@ def generate_embeddings(table, cache: EmbeddingCache, n_layer: int = 30,
                         esm_ckpt: Optional[str] = None,
                         chemberta_ckpt: Optional[str] = None,
                         chemberta_tokenizer: Optional[str] = None,
-                        verbose: bool = True, device="cuda") -> None:
+                        verbose: bool = True, device="cuda", mesh=None) -> None:
     """Populate ``cache`` with every missing entity embedding in ``table``.
 
     ``esm_ckpt`` / ``chemberta_ckpt``: local checkpoint files (.pt /
@@ -153,12 +162,23 @@ def generate_embeddings(table, cache: EmbeddingCache, n_layer: int = 30,
     ChemBERTa weights, from a file or pre-loaded: token ids must index that
     checkpoint's embedding rows (reference handler/dataset.py:154-160), and
     the regex tokenizer's self-assigned ids would give garbage caches, so
-    real weights without their tokenizer raise."""
+    real weights without their tokenizer raise.
+
+    ``mesh``: the grid of ranks calling it together (module docstring)."""
     dev = resolve_device(device)
+    write = mesh is None or mesh.primary
+    model_axis = mesh is not None and mesh.n_model > 1
 
     # --- proteins (ESM-2) ---------------------------------------------------
     esm_cfg = esm2_config_for_layers(n_layer)
-    with torch.device(dev):
+    seeded = esm_params is None and not esm_ckpt
+    if model_axis and not seeded and write:
+        print("[embed] ESM-2 weights from a checkpoint run replicated (only a seeded random "
+              "init is sharded over the model axis, as in the JAX package)", file=sys.stderr)
+    sharded = model_axis and seeded and mesh.rank == 0
+    if not (write or sharded):
+        return
+    with torch.device("cpu" if sharded else dev):
         esm = ESM2(esm_cfg, dtype=dtype)
     if esm_params is None and esm_ckpt:
         if verbose:
@@ -166,15 +186,23 @@ def generate_embeddings(table, cache: EmbeddingCache, n_layer: int = 30,
         esm_params = esm2_state_from_torch(load_torch_state_dict(esm_ckpt),
                                            num_layers=esm_cfg.num_layers)
     if esm_params is None:
-        if verbose:
+        if verbose and write:
             print("[embed] WARNING: no ESM-2 checkpoint given; using "
                   "random-initialized encoder weights", file=sys.stderr)
         esm_params = seeded_state(esm, seed)
     esm.load_state_dict(esm_params)
+    if sharded:
+        shard_encoder(esm, mesh)
+        esm.to(dev)
     todo = [(ordn, esm_tokenize(seq, max_prot_resis))
             for seq, ordn in table.prot2ord.items() if not cache.has_prot(ordn)]
-    _encode(esm.eval(), todo, batch, ESM_PAD, None, dev, cache.put_prot, "ESM", verbose, 64)
+    if sharded:
+        mesh.model_barrier()     # the group has read the cache before rank 0 writes to it
+    put = cache.put_prot if write else (lambda ordn, rep: None)
+    _encode(esm.eval(), todo, batch, ESM_PAD, None, dev, put, "ESM", verbose and write, 64)
     del esm, esm_params
+    if not write:
+        return
 
     # --- drugs (ChemBERTa) --------------------------------------------------
     cb_cfg = chemberta_cfg or ChemBERTaConfig(hidden=cache.n_drug_feature)

@@ -14,7 +14,8 @@ trees.  Numerics follow the JAX module: rotary over the whole head dim with
 cos/sin in f32 from positions ``arange(L)`` (pads included), attention
 logits and probabilities in f32 (``matmul_f32``), pad logits at
 ``finfo(f32).min``, exact GELU, LayerNorm in f32 with eps 1e-5, and the
-residual stream in f32 at any compute dtype.
+residual stream in f32 at any compute dtype.  Column-parallel under a model
+axis (``encoders/sharding.py``: a layer's ``tp`` and its attention's).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch import nn
 
 from druglamp_tpu_torch.encoders.layers import attention_core, take
 from druglamp_tpu_torch.nn.layers import Dense, LayerNorm, gelu
+from druglamp_tpu_torch.parallel.mesh import tp_size
 
 # fair-esm alphabet (standard ordering; prepend <cls>, append <eos>)
 ESM_ALPHABET = [
@@ -103,10 +105,15 @@ class ESMSelfAttention(nn.Module):
         self.k_proj = Dense(E, E, dtype=dtype)
         self.v_proj = Dense(E, E, dtype=dtype)
         self.out_proj = Dense(E, E, dtype=dtype)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+        """Under a model axis: this rank's H/M heads, ``out_proj`` reduced."""
         B, L, E = x.shape
-        H = self.num_heads
+        n = tp_size(self.tp)[0]
+        H, E = self.num_heads // n, E // n
+        if self.tp is not None:
+            x = self.tp.copy_to_model(x)
 
         def split(t):
             return t.reshape(B, L, H, E // H).transpose(1, 2)
@@ -126,10 +133,15 @@ class ESMLayer(nn.Module):
         self.final_layer_norm = LayerNorm(E, eps=eps)
         self.fc1 = Dense(E, cfg.ffn, dtype=dtype)
         self.fc2 = Dense(cfg.ffn, E, dtype=dtype)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+        """Under a model axis: this rank's FFN units, ``fc2`` reduced."""
         x = x + self.self_attn(self.self_attn_layer_norm(x), pad_mask)
-        return x + self.fc2(gelu(self.fc1(self.final_layer_norm(x))))
+        h = self.final_layer_norm(x)
+        if self.tp is not None:
+            h = self.tp.copy_to_model(h)
+        return x + self.fc2(gelu(self.fc1(h)))
 
 
 class ESM2(nn.Module):

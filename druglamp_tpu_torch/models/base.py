@@ -13,7 +13,8 @@ parameters for the others.  The SSL head shares the ``protein_extractor``
 module itself.  ``bn_groups > 1`` gives every BatchNorm per-replica
 statistics and the CM head per-replica mining (torch DDP's, the JAX
 model's ``bn_groups``); the parameter and buffer names do not change with
-it, so one checkpoint loads in either mode.
+it, so one checkpoint loads in either mode.  ``pmma_variant="linattn"``
+puts multi-head linear attention in PMMA's blocks ≥ 2 (``nn/pmma.py``).
 """
 
 from __future__ import annotations
@@ -42,10 +43,11 @@ class DrugLAMPBase(nn.Module):
 
     def __init__(self, n_drug_feature: int = 384, n_prot_feature: int = 640,
                  config: Config = Config(), compute_dtype: torch.dtype = torch.float32,
-                 vis: bool = False, bn_groups: int = 1):
+                 vis: bool = False, bn_groups: int = 1, pmma_variant: str = "pmma"):
         super().__init__()
         cfg = config
         self.bn_groups = bn_groups
+        self.pmma_variant = pmma_variant
         nh = cfg.n_hidden
         self.n_drug_feature = n_drug_feature
         self.n_prot_feature = n_prot_feature
@@ -84,7 +86,8 @@ class DrugLAMPBase(nn.Module):
         self.pmma = PairedMultimodalAttention(
             hidden_size=pmma_cfg.hidden_size, num_heads=pmma_cfg.num_heads,
             num_layers=pmma_cfg.num_layers, feat_len=pmma_cfg.feat_len,
-            mol_len=pmma_cfg.mol_len, dropout_rate=pmma_cfg.dropout_rate, vis=vis, dtype=dt)
+            mol_len=pmma_cfg.mol_len, dropout_rate=pmma_cfg.dropout_rate, vis=vis, dtype=dt,
+            variant=pmma_variant)
 
         dec = cfg.decoder
         self.mlp_classifier = MLPClassifier(in_dim=dec.in_dim * 2, hidden_dim=dec.hidden_dim * 2,

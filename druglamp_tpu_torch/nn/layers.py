@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +23,14 @@ class Dense(nn.Linear):
     ``init``: ``"torch"`` is torch.nn.Linear's default (U(±1/√fan_in) weight and
     bias); ``"xavier"`` is the PMMA MLP's xavier-uniform weight with an
     N(0, 1e-6) bias.
+
+    Row-parallel (``tp_reduce``, a ``MeshContext`` that
+    ``MeshContext.shard_params`` sets): the weight holds this model rank's
+    input rows; the partial product is accumulated in f32 from operands
+    rounded to the compute dtype and returned in f32 (``partial_product``),
+    summed over the model ranks in f32 (``reduce_from_model``), the whole
+    bias added once after the sum, and the result rounded to the compute
+    dtype once, as the unsharded product rounds it.
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
@@ -30,11 +38,15 @@ class Dense(nn.Linear):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         self.init = init
+        self.tp_reduce: Optional[dp.MeshContext] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp_reduce is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        y = self.tp_reduce.reduce_from_model(partial_product(x.to(dt), self.weight.to(dt)))
+        return (y if b is None else y + b.float()).to(dt)
 
     def init_weights(self, g: Optional[torch.Generator]) -> None:
         if self.init == "xavier":
@@ -255,16 +267,23 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            shard: Tuple[int, int] = (1, 0)) -> torch.Tensor:
     """flax ``nn.Dropout``: in training, keep each entry with probability
     1 − rate and scale the kept ones by 1/(1 − rate) in x's dtype; otherwise
     the identity.  The mask is drawn from ``generator`` (on x's device), so
     two runs from one seed drop the same entries; ``None`` takes torch's
-    default generator."""
+    default generator.  ``shard`` (n, m): ``x`` is piece m of n of a tensor
+    split on its last axis (a column-parallel product's output): the whole
+    tensor's mask is drawn and piece m kept, so the sharded step drops what
+    the unsharded one drops and the generator advances alike."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    n, m = shard
+    w = x.shape[-1]
+    mask = torch.empty(x.shape[:-1] + (w * n,), device=x.device).bernoulli_(
+        keep, generator=generator)[..., m * w:(m + 1) * w]
     return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -272,3 +291,38 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Te
     """``a @ b`` on operands rounded to ``dtype``, accumulated and returned in
     f32 (JAX's ``preferred_element_type=jnp.float32``)."""
     return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
+
+
+class _HalfGemmF32(torch.autograd.Function):
+    """``x @ wᵀ`` of bf16 or f16 operands on a card as one tensor-core GEMM
+    with f32 accumulation and an f32 result (``torch.mm(..., out_dtype=)``,
+    which has no autograd formula).  The backward rounds the incoming
+    gradient to the operands' dtype (a row-parallel product's gradient
+    arrives from a cast of its f32 result to that dtype, so the rounding is
+    exact) and takes both gradients in it, as ``F.linear`` in that dtype
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w if ctx.needs_input_grad[0] else None
+        gw = (g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ wᵀ`` of operands of one dtype, accumulated and returned in f32: a
+    bf16 or f16 product on a card stays on the tensor cores
+    (``_HalfGemmF32``); elsewhere the operands are widened to f32
+    (``matmul_f32``), the same sums in another order."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return _HalfGemmF32.apply(x, w)
+    return matmul_f32(x, w.t(), x.dtype)

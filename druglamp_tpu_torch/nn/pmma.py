@@ -15,6 +15,18 @@
 
 The attention cores go through ``kernels/attention.py``: the hand-written
 CUDA kernels on a CUDA tensor, the plain PyTorch version on the CPU.
+
+``variant="linattn"`` (the reference's LinAttnEncoder): blocks ≥ 2 are
+``MultiHeadLinearAttention(d_model=2E, d_diff=8E, nhead=8)`` plus a
+residual; blocks 0–1 stay paired.
+
+Under a model axis (``parallel/mesh.py``, ``MeshContext.shard_params``)
+``Mlp``, ``SelfAttention`` and ``PairedAttention`` run tensor-parallel
+(their ``tp``): the input goes through ``copy_to_model``, Q/K/V and
+``fc1`` hold this rank's columns (H/M whole heads: the kernels run on
+(B, H/M, L, D)), and the row-parallel ``fc2`` / self ``out`` / paired
+``fc`` reduce their partial products (``Dense.tp_reduce``).  The dropout
+after ``fc1`` keeps this rank's columns of the whole mask.
 """
 
 from __future__ import annotations
@@ -26,6 +38,10 @@ from torch import nn
 
 from druglamp_tpu_torch.kernels import attention
 from druglamp_tpu_torch.nn.layers import Dense, LayerNorm, dropout, gelu
+from druglamp_tpu_torch.nn.mhla import MultiHeadLinearAttention
+from druglamp_tpu_torch.parallel.mesh import tp_size
+
+VARIANTS = ("pmma", "linattn")
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -52,9 +68,13 @@ class Mlp(nn.Module):
         self.fc1 = Dense(hidden_size, 4 * hidden_size, dtype=dtype, init="xavier")
         self.fc2 = Dense(4 * hidden_size, hidden_size, dtype=dtype, init="xavier")
         self.dropout_rate = dropout_rate
+        self.tp = None
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = dropout(gelu(self.fc1(x)), self.dropout_rate, self.training, generator)
+        if self.tp is not None:
+            x = self.tp.copy_to_model(x)
+        x = dropout(gelu(self.fc1(x)), self.dropout_rate, self.training, generator,
+                    tp_size(self.tp))
         return dropout(self.fc2(x), self.dropout_rate, self.training, generator)
 
 
@@ -72,9 +92,15 @@ class PairedAttention(nn.Module):
             self.add_module(name, Dense(E, E, dtype=dtype))
         self.fc = Dense(2 * E, E, dtype=dtype)
         self.fc_mol = Dense(2 * E, E, dtype=dtype)
+        self.tp = None
 
     def forward(self, prot: torch.Tensor, mol: torch.Tensor):
-        H = self.num_heads
+        """Under a model axis the heads are this rank's, ``fc`` / ``fc_mol``
+        reduce over the model ranks and ``out`` / ``out_mol`` are
+        replicated (``parallel/mesh.py``)."""
+        H = self.num_heads // tp_size(self.tp)[0]
+        if self.tp is not None:
+            prot, mol = self.tp.copy_to_model(prot), self.tp.copy_to_model(mol)
         q_p = _split_heads(self.query(prot), H)
         k_p = _split_heads(self.key(prot), H)
         v_p = _split_heads(self.value(prot), H)
@@ -105,9 +131,12 @@ class SelfAttention(nn.Module):
         self.vis = vis
         for name in ("query", "key", "value", "out"):
             self.add_module(name, Dense(hidden_size, hidden_size, dtype=dtype))
+        self.tp = None
 
     def forward(self, x: torch.Tensor):
-        H = self.num_heads
+        H = self.num_heads // tp_size(self.tp)[0]
+        if self.tp is not None:
+            x = self.tp.copy_to_model(x)
         q = _split_heads(self.query(x), H)
         k = _split_heads(self.key(x), H)
         v = _split_heads(self.value(x), H)
@@ -153,18 +182,27 @@ class PairedMultimodalAttention(nn.Module):
 
     def __init__(self, hidden_size: int = 256, num_heads: int = 4, num_layers: int = 4,
                  feat_len: int = 256, mol_len: int = 256, dropout_rate: float = 0.1,
-                 vis: bool = False, dtype: Optional[torch.dtype] = None):
+                 vis: bool = False, dtype: Optional[torch.dtype] = None, variant: str = "pmma"):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"PMMA variant {variant!r}: expected one of {VARIANTS}")
         E = hidden_size
         self.num_layers = num_layers
         self.vis = vis
+        self.variant = variant
         self.pe_prot = nn.Parameter(torch.zeros(1, feat_len, E))
         self.pe_mol = nn.Parameter(torch.zeros(1, mol_len, E))
         self.mol_embeddings = Dense(E, E, dtype=dtype)
         self.dropout_rate = dropout_rate
         for i in range(num_layers):
-            block = (PMMABlock(E, num_heads, True, dropout_rate, vis, dtype) if i < 2
-                     else PMMABlock(2 * E, num_heads, False, dropout_rate, vis, dtype))
+            if i < 2:
+                block = PMMABlock(E, num_heads, True, dropout_rate, vis, dtype)
+            elif variant == "linattn":
+                block = MultiHeadLinearAttention(2 * E, nhead=8, d_diff=8 * E,
+                                                 dropout=dropout_rate, activation="gelu",
+                                                 dtype=dtype)
+            else:
+                block = PMMABlock(2 * E, num_heads, False, dropout_rate, vis, dtype)
             self.add_module(f"block_{i}", block)
         self.encoder_norm = _ln(2 * E)
 
@@ -182,7 +220,10 @@ class PairedMultimodalAttention(nn.Module):
             else:
                 if i == 2:
                     x = torch.cat([x, mol], dim=-1)
-                x, _, w, gw = block(x, generator=generator)
+                if self.variant == "linattn":
+                    x, w, gw = block(x, generator) + x, None, None
+                else:
+                    x, _, w, gw = block(x, generator=generator)
             if self.vis:
                 weights.append(w)
                 guided_weights.append(gw)

@@ -59,14 +59,20 @@ so every rank holds the same parameters, losses, CM weight and validation
 metrics (the probabilities are gathered in the single program's order) and
 takes the same early-stopping decisions.  Rank 0 writes the checkpoints;
 every rank restores them.  Each rank draws its own dropout and MLM masks
-from (seed, epoch, rank).  The port's
+from (seed, epoch, data rank).  Under a model axis (``--mesh-model``) the
+ranks of a model group share a data rank: they train on the same rows with
+the same draws and stay bit-identical, as the JAX CLI's replicated model
+axis does; rank 0 of the grid alone writes.  The port's
 initial weights need no example batch (``init_state(seed)``).
+``fast_dev_run`` is the reference's smoke path: a few training batches
+and a validation pass, nothing written.
 """
 
 from __future__ import annotations
 
 import collections
 import copy
+import itertools
 import os
 import time
 from typing import Any, Dict, Optional
@@ -139,7 +145,8 @@ class Trainer:
                  work_dir: str = "results/run", embed_store: Optional[Dict[str, Any]] = None,
                  device_data=None, device="cuda", mesh: Optional[MeshContext] = None):
         self.device = resolve_device(device)
-        self.mesh = mesh if mesh is not None and mesh.n_data > 1 else None
+        self.grid = mesh                 # every rank (writes, barriers)
+        self.mesh = mesh if mesh is not None and mesh.n_data > 1 else None   # the data axis
         for loader in (train_loader, val_loader, test_loader):
             if self.mesh is not None and loader.batch_size % self.mesh.n_data:
                 raise ValueError(f"batch size {loader.batch_size} does not split over "
@@ -193,8 +200,9 @@ class Trainer:
 
     @property
     def primary(self) -> bool:
-        """This process writes the checkpoints (rank 0, or the only one)."""
-        return self.mesh is None or self.mesh.rank == 0
+        """This process writes the checkpoints (rank 0 of the grid, or the
+        only one)."""
+        return self.grid is None or self.grid.primary
 
     def _shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's rows of a host batch; in global mode the CM ground
@@ -346,6 +354,33 @@ class Trainer:
         feed.release()
         return sums, len(outs)
 
+    def fast_dev_run(self, seed: int, n_batches: int = 10) -> Dict[str, Any]:
+        """The smoke path (the JAX package's ``fast_dev_run``, reference
+        ``ExpModule.run_fast_development``): fresh weights from ``seed``,
+        ``n_batches`` training batches of epoch 0 through the host pipeline
+        at the base LRs with every gate of the recipe on (each step
+        calibrates the CM weight from the Trainer's, as the JAX package's
+        does), then a validation pass; no checkpoint, no early stopping → {"train_losses": [cls loss per batch], "val_<metric>":
+        ...}."""
+        state = self.init_state(seed)
+        s = self.cfg.solver
+        step_fn = make_train_step(self.model, self.use_ssl, self.use_cm, calibrate=self.use_cm,
+                                  grad_mode=s.grad_mode, n_class=self.n_class,
+                                  device=self.device, mesh=self.mesh)
+        gen = self._generator(seed + 999, 0)
+        feed = _DevicePrefetch(itertools.islice(self.train_loader.epoch(0), n_batches),
+                               self.device, self.embed_store,
+                               shard=self._shard if self.mesh is not None else None)
+        losses = []
+        for _, batch in feed:
+            out = step_fn(state, batch, gen, s.lr, s.ssl_lr, s.cm_lr, self.margin_sched.margin,
+                          self.cm_weight)
+            losses.append(out.cls_loss)
+        losses = [float(x) for x in losses]
+        feed.release()
+        val = self.evaluate(state, self.val_loader, full=False)
+        return {"train_losses": losses, **{f"val_{k}": v for k, v in val.items()}}
+
     def evaluate(self, state: Optional[TrainState], loader, full: bool) -> Dict[str, float]:
         """AUROC, AUPRC, AUSum (and with ``full`` the threshold metrics) and
         the mean batch loss of the model as it stands, over ``loader``'s
@@ -437,8 +472,8 @@ class Trainer:
             tmp = path + ".tmp"
             torch.save({**snapshot, "host": self._host_state()}, tmp)
             os.replace(tmp, path)
-        if self.mesh is not None:
-            self.mesh.barrier()
+        if self.grid is not None:
+            self.grid.barrier()
 
     def _load(self, snapshot: Dict[str, Any], state: TrainState) -> None:
         self.model.load_state_dict(snapshot["model"])

@@ -144,14 +144,17 @@ BASE = ["--model", "DrugLAMP2C2P", "--data", "toy", "--data-root", "unused", "--
     ["--mesh-model", "2"], ["--devices", "0,1"], ["--bn-mode", "per_replica", "--devices", "0,1"],
 ], ids=["mesh-model", "devices", "bn-mode"])
 def test_unported_flags_raise_naming_their_slice(runs, flags, tmp_path):
-    """Tensor parallelism (``--mesh-model`` > 1) raises naming its slice.
-    ``--devices`` and ``--bn-mode per_replica`` (the test's name is from when
-    they raised too) run: in one process the data-parallel size is 1, so
-    either gives the run without it (``nocache``) value for value."""
+    """``--mesh-model 2`` in one process raises: one rank does not divide
+    into a model axis of 2 (the JAX ``make_mesh``'s divisibility assert; the
+    two-rank run is in tests/test_torch_port_tensor_parallel.py; the test's
+    name is from when the flag named its slice).  ``--devices`` and
+    ``--bn-mode per_replica`` run: in one process the data-parallel size is
+    1, so either gives the run without it (``nocache``) value for value."""
     if flags[0] == "--mesh-model":
-        with pytest.raises(NotImplementedError) as e:
+        with pytest.raises(ValueError) as e:
             cli.main(BASE + flags)
-        assert "the tensor-parallel slice" in str(e.value) and "--mesh-model" in str(e.value)
+        assert "do not divide into a model axis of 2" in str(e.value)
+        assert "--mesh-model" in str(e.value)
         return
     wd = str(tmp_path / "run")
     assert cli.main(_argv(runs["root"], runs["yaml"], wd) + flags) == 0
@@ -159,9 +162,15 @@ def test_unported_flags_raise_naming_their_slice(runs, flags, tmp_path):
 
 
 def test_per_replica_bn_on_one_device_passes_the_flag_check():
+    """The flags parse, and their grid in one process is one rank (the
+    check of the model axis is ``make_mesh``'s)."""
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh
+
     args = cli.build_argparser().parse_args(BASE + ["--devices", "0", "--bn-mode",
                                                     "per_replica"])
-    cli.unported_flags(args)
+    assert (args.bn_mode, args.devices, args.mesh_model) == ("per_replica", "0", 1)
+    mesh = MeshContext(make_mesh(args.mesh_model))
+    assert (mesh.n_data, mesh.n_model, mesh.primary) == (1, 1, True)
 
 
 def test_main_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -810,3 +810,27 @@ def test_generate_embeddings_on_the_card_matches_the_cpu(cuda, tmp_path, monkeyp
     for name, ref in files["cpu"].items():
         assert files["cuda"][name].shape == ref.shape
         assert np.abs(files["cuda"][name] - ref).max() <= 2e-5, name
+
+
+def test_row_parallel_product_on_the_tensor_cores(cuda):
+    """``nn/layers.py::partial_product`` of bf16 operands on the card (one
+    tensor-core GEMM with an f32 result, a model rank's Mlp ``fc2`` at
+    ``--mesh-model 2``) against the f32 product of the same operands on the
+    CPU: the forward within f32 summation order; the gradients those of
+    ``F.linear`` in bf16, to one bf16 ulp."""
+    from druglamp_tpu_torch.nn.layers import matmul_f32, partial_product
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 256, 512, generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+    w = torch.randn(256, 512, generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+    dy = torch.randn(4, 256, 256, generator=g, device=cuda).to(torch.bfloat16)
+    y = partial_product(x, w)
+    assert y.dtype == torch.float32 and y.shape == (4, 256, 256)
+    ref = matmul_f32(x.detach().cpu(), w.detach().cpu().t(), torch.bfloat16)
+    torch.testing.assert_close(y.detach().cpu(), ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+    got = torch.autograd.grad(y, (x, w), dy.float())
+    want = torch.autograd.grad(torch.nn.functional.linear(x, w), (x, w), dy)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=_bf16_ulp(b.abs().max().item()))

@@ -20,8 +20,8 @@ PORT_FILES = sorted((ROOT / "druglamp_tpu_torch").rglob("*.py")) + [ROOT / "chip
 
 # The modules of the device-resident epoch and the packed GCN kernel, of the
 # SSL/CM gates and the Trainer, of the host pipeline and the training CLI, of
-# the frozen encoders, and of data-parallel training (the glob above must
-# reach them).
+# the frozen encoders, of data-parallel training, and of the model axis and
+# the last leftover modules (the glob above must reach them).
 SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py",
                  "data/dataset.py", "data/cache.py", "eval/metrics.py", "train/steps.py",
                  "nn/layers.py", "losses/masking.py", "losses/schedules.py", "models/ssl.py",
@@ -31,7 +31,10 @@ SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py"
                  "cli/sweep.py", "chem/tokenizer.py", "chem/hf_tokenizer.py",
                  "encoders/__init__.py", "encoders/layers.py", "encoders/esm2.py",
                  "encoders/chemberta.py", "encoders/convert.py", "encoders/embed_pipeline.py",
-                 "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py")
+                 "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+                 "encoders/sharding.py", "nn/pmma.py", "nn/mlp.py", "models/registry.py",
+                 "losses/focal.py", "nn/norms.py", "data/partition.py", "data/inspect.py",
+                 "chem/protein_features.py")
 LAZY = ("transformers", "safetensors")     # imported only where used, never at import
 
 

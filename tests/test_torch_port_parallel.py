@@ -30,7 +30,7 @@ ranks are processes of a gloo group started as torchrun starts them
 - The CLI under two ranks with ``--bn-mode per_replica`` trains over the
   host pipeline, rank 0 writing the logs and checkpoints.
 - One process: ``MeshContext``'s row shards, ``make_mesh``'s refusal of a
-  model axis, and the process-group guard (a no-op without torchrun's
+  model axis that does not divide the ranks, and the process-group guard (a no-op without torchrun's
   variables; NCCL refuses two ranks on one card before any rank waits, and
   the CLI's own call gives each local rank its card).
 """
@@ -161,7 +161,8 @@ def test_loader_cm_groups_match_jax(tmp_path):
 def test_mesh_shards_rows_and_refuses_tensor_parallelism():
     """One process: a mesh of one rank shards nothing; ``rows`` of rank r of
     N is the contiguous block, a leading dimension that does not divide
-    stays whole; a model axis names the tensor-parallel slice."""
+    stays whole; a model axis of 2 does not divide one process's single
+    rank (the JAX ``make_mesh``'s divisibility assert), so it raises."""
     mesh = MeshContext(make_mesh(1))
     assert mesh.n_data == 1 and mesh.rank == 0
     batch = {"a": np.arange(6), "cm": {"gt": np.ones((6, 6))}, "s": np.float32(2)}
@@ -171,7 +172,7 @@ def test_mesh_shards_rows_and_refuses_tensor_parallelism():
     sharded = two.shard_batch(batch, whole=("cm",))
     assert sharded["a"].tolist() == [3, 4, 5] and sharded["cm"]["gt"].shape == (6, 6)
     assert sharded["s"] == 2 and two.shard_batch(batch)["cm"]["gt"].shape == (3, 6)
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
+    with pytest.raises(ValueError, match="1 rank\\(s\\) do not divide into a model axis of 2"):
         make_mesh(2)
 
 

@@ -1,6 +1,7 @@
-"""The rank processes of tests/test_torch_port_parallel.py: each job runs in
-every rank of a gloo process group on the CPU, started as torchrun starts
-them (``run_ranks``), and reads its inputs from and writes its results to a
+"""The rank processes of tests/test_torch_port_parallel.py and
+tests/test_torch_port_tensor_parallel.py: each job runs in every rank of a
+gloo process group on the CPU, started as torchrun starts them
+(``run_ranks``), and reads its inputs from and writes its results to a
 directory the test gives it:
 
     RANK=r WORLD_SIZE=2 LOCAL_RANK=r MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
@@ -257,6 +258,260 @@ def _load(t, state):
     return TrainState.create(t.model, t.use_ssl, t.use_cm)
 
 
+# --- the model axis (tests/test_torch_port_tensor_parallel.py) ----------------------------
+
+def _grid(mesh):
+    """The grid as this rank sees it: its place and its groups' ranks."""
+    import torch.distributed as dist
+
+    m = mesh.mesh
+    ranks = (lambda g: list(range(dist.get_world_size())) if g is None
+             else dist.get_process_group_ranks(g))
+    return {"n_data": m.n_data, "rank": m.rank, "n_model": m.n_model,
+            "model_rank": m.model_rank, "primary": mesh.primary,
+            "data_group": ranks(m.group),
+            "model_group": ranks(m.model_group) if m.n_model > 1 else None}
+
+
+def _np(tree):
+    return {k: v.detach().numpy().copy() for k, v in tree.items()}
+
+
+def _loss_grads(model, batch, gen_seed, use_ssl, use_cm, mesh=None, gather=None):
+    """``steps.loss_gradients`` (calibration off) → (losses, {loss: {name:
+    whole gradient}}); a sharded model's gradients gathered by ``gather``."""
+    import torch
+
+    from druglamp_tpu_torch.data.encoding import decode_batch
+    from druglamp_tpu_torch.train import steps
+
+    gen = None if gen_seed is None else torch.Generator().manual_seed(gen_seed)
+    model.train()
+    with steps.train_numerics():
+        *losses, _, _, grads = steps.loss_gradients(model, decode_batch(dict(batch)), gen,
+                                                    use_ssl, use_cm, False, 0.5, torch.ones(()),
+                                                    mesh=mesh)
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for loss, gs in grads.items():
+        named = dict(zip(names, gs))
+        out[loss] = _np(gather(model, values=named) if gather is not None else named)
+    return [float(x) for x in losses], out
+
+
+def _moments(model, state, gather=None):
+    """{optimizer: {"exp_avg" | "exp_avg_sq": {name: the whole moment}}} of
+    the AdamWs of ``state`` (a TrainState over ``model``); a sharded model's
+    moments gathered by ``gather``."""
+    out = {}
+    for opt_name in ("opt_cls", "opt_ssl", "opt_cm"):
+        opt = getattr(state, opt_name)
+        if opt is None:
+            continue
+        out[opt_name] = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            named = {n: opt.state[p][key] for n, p in model.named_parameters()}
+            out[opt_name][key] = _np(gather(model, values=named) if gather is not None
+                                     else named)
+    return out
+
+
+def job_tp(d: str) -> None:
+    """``tp.pkl``: {"n_model", "cfg" (dropout on), "cfg0" (dropout 0), "nd",
+    "np", "batch" (a compact batch with its CM ground truth), "lrs",
+    "jax_params", "jax_stats" (the JAX reference's flax trees, for cfg0),
+    "esm" (tiny ESM-2 configs by name), "esm_tokens"} on a 1 × 2 grid: the
+    grid; ``build_model(mesh=)`` then ``gather_params`` against the whole
+    model; the cls and full-gate ``loss_gradients`` with dropout on, sharded
+    and in one process (gradients gathered); one full-gate step both ways in
+    each grad mode, its parameters and AdamW moments gathered; in each grad
+    mode two full-gate steps, the second after ``shard_state`` (one process:
+    both whole); the cls step from the JAX weights at dropout 0; each
+    ESM-2 whole and column-parallel, and ``generate_embeddings`` over the
+    grid into ``<d>/cache`` → rank{r}_tp.pkl."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from druglamp_tpu_torch.convert import from_jax_params, load_jax_params_sharded
+    from druglamp_tpu_torch.encoders import embed_pipeline, esm2
+    from druglamp_tpu_torch.encoders.chemberta import ChemBERTaConfig
+    from druglamp_tpu_torch.encoders.layers import seeded_state
+    from druglamp_tpu_torch.encoders.sharding import shard_encoder
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+    from druglamp_tpu_torch.losses import masking
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh
+    from druglamp_tpu_torch.train import steps
+    from druglamp_tpu_torch.train.state import TrainState
+
+    torch.set_num_threads(1)
+    masking.mlm_mask = fixed_mask
+    assert maybe_initialize_distributed("gloo", "cpu")
+    with open(os.path.join(d, "tp.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    mesh = MeshContext(make_mesh(spec["n_model"]))
+    out = {"grid": _grid(mesh)}
+    cfg, nd, npf = spec["cfg"], spec["nd"], spec["np"]
+    batch = _tensors(spec["batch"])
+    lr, lr_ssl, lr_cm, margin, w0 = spec["lrs"]
+
+    def model(c=cfg, sharded=True):
+        m = build_model("DrugLAMP2C2P", c, nd, npf, generator=torch.Generator().manual_seed(0))
+        if sharded:
+            out.setdefault("split", mesh.shard_params(m))
+        return m
+
+    whole = _np(model(sharded=False).state_dict())
+    tp = model()
+    out["local_shapes"] = {k: tuple(v.shape) for k, v in tp.state_dict().items()}
+    out["roundtrip"] = [k for k, v in mesh.gather_params(tp).items()
+                        if not np.array_equal(v.numpy(), whole[k])]
+    for gate, (use_ssl, use_cm) in (("cls", (False, False)), ("full", (True, True))):
+        out[gate] = {"tp": _loss_grads(model(), batch, 5, use_ssl, use_cm,
+                                       gather=mesh.gather_params),
+                     "one": _loss_grads(model(sharded=False), batch, 5, use_ssl, use_cm)}
+    out["step"] = {}
+    for grad_mode in steps.GRAD_MODES:
+        runs = out["step"][grad_mode] = {}
+        for name, sharded in (("tp", True), ("one", False)):
+            m = model(sharded=sharded)
+            step = steps.make_train_step(m, True, True, calibrate=True, grad_mode=grad_mode,
+                                         device="cpu")
+            state = TrainState.create(m, True, True)
+            o = step(state, batch, torch.Generator().manual_seed(5), lr, lr_ssl, lr_cm, margin, w0)
+            gather = mesh.gather_params if sharded else None
+            runs[name] = {"local": _np(m.state_dict()), "losses": [float(o.cls_loss),
+                          float(o.ssl_loss), float(o.cm_loss)], "w": float(o.cm_weight),
+                          "whole": _np(mesh.gather_params(m)) if sharded else None,
+                          "moments": _moments(m, state, gather)}
+    # a state that already holds moments, sharded between two steps
+    out["shard_state"] = {}
+    for grad_mode in steps.GRAD_MODES:
+        runs = out["shard_state"][grad_mode] = {}
+        for name in ("tp", "one"):
+            m = model(sharded=False)
+            state = TrainState.create(m, True, True)
+            step = steps.make_train_step(m, True, True, calibrate=True, grad_mode=grad_mode,
+                                         device="cpu")
+            o = step(state, batch, torch.Generator().manual_seed(5), lr, lr_ssl, lr_cm, margin, w0)
+            first = _np(m.state_dict())
+            if name == "tp":
+                runs["split"] = mesh.shard_state(m, state)
+            o = step(state, batch, torch.Generator().manual_seed(6), lr, lr_ssl, lr_cm, margin,
+                     float(o.cm_weight))
+            gather = mesh.gather_params if name == "tp" else None
+            runs[name] = {"first": first, "local": _np(m.state_dict()),
+                          "whole": _np(gather(m)) if gather is not None else None,
+                          "losses": [float(o.cls_loss), float(o.ssl_loss), float(o.cm_loss)],
+                          "moments": _moments(m, state, gather)}
+    jax_cls = {}
+    for name, sharded in (("tp", True), ("one", False)):
+        m = model(spec["cfg0"], sharded=False)
+        if sharded:
+            load_jax_params_sharded(spec["jax_params"], spec["jax_stats"], m, mesh)
+        else:
+            m.load_state_dict(from_jax_params(spec["jax_params"], spec["jax_stats"], m))
+        step = steps.make_train_step(m, False, False, device="cpu")
+        o = step(TrainState.create(m), _tensors(spec["jax_batch"]), None, lr)
+        jax_cls[name] = float(o.cls_loss)
+    out["jax_cls"] = jax_cls
+
+    tokens = torch.from_numpy(spec["esm_tokens"])
+    out["esm"] = {}
+    for name, kw in spec["esm"].items():
+        enc = esm2.ESM2(esm2.ESM2Config(**kw))
+        enc.load_state_dict(seeded_state(enc, 0))
+        with torch.inference_mode():
+            ref = enc(tokens).numpy()
+            split = shard_encoder(enc, mesh)
+            got = enc(tokens).numpy()
+        out["esm"][name] = {"one": ref, "tp": got, "split": split}
+    esm2._ESM2_SIZES[12] = esm2.ESM2Config(**spec["esm"]["heads"])
+    embed_pipeline._BUCKETS, embed_pipeline._DRUG_BUCKETS = (48,), (32,)
+    table = types.SimpleNamespace(prot2ord=spec["proteins"], drug2ord=spec["drugs"])
+    cache = EmbeddingCache(os.path.join(d, "cache"), "toy", nd, 32)
+    embed_pipeline.generate_embeddings(table, cache, n_layer=12, device="cpu", verbose=False,
+                                       chemberta_cfg=ChemBERTaConfig(**spec["chemberta"]),
+                                       mesh=mesh)
+    mesh.barrier()
+    with open(os.path.join(d, f"rank{torch.distributed.get_rank()}_tp.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def job_tp4(d: str) -> None:
+    """``tp4.pkl``: {"cfg0" (dropout 0), "nd", "np", "cases": {mode:
+    {"bn_groups", "batch" (the global compact batch; its ``cm`` the whole
+    batch's, or one block a data rank)}}, "esm", "proteins", "drugs",
+    "chemberta" (as ``tp.pkl``'s)} on a 2 × 2 grid: the grid; for each mode
+    ``loss_gradients`` over the grid (gradients gathered over the model
+    ranks) and in one process on the whole batch, and the local state after
+    one full-gate step over the grid; ``generate_embeddings`` over the grid
+    into ``<d>/cache``, the ESM-2 models each rank built counted →
+    rank{r}_tp4.pkl."""
+    import types
+
+    import torch
+
+    from druglamp_tpu_torch.data.cache import EmbeddingCache
+    from druglamp_tpu_torch.encoders import embed_pipeline, esm2
+    from druglamp_tpu_torch.encoders.chemberta import ChemBERTaConfig
+    from druglamp_tpu_torch.losses import masking
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh
+    from druglamp_tpu_torch.train import steps
+    from druglamp_tpu_torch.train.state import TrainState
+
+    torch.set_num_threads(1)
+    masking.mlm_mask = fixed_mask
+    assert maybe_initialize_distributed("gloo", "cpu")
+    with open(os.path.join(d, "tp4.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    mesh = MeshContext(make_mesh(2))
+    out = {"grid": _grid(mesh)}
+    for mode, case in spec["cases"].items():
+        groups = case["bn_groups"]
+        batch = _tensors(case["batch"])
+        shard = mesh.shard_batch(batch, whole=("cm",) if groups == 1 else ())
+
+        def model(sharded=True):
+            return build_model("DrugLAMP2C2P", spec["cfg0"], spec["nd"], spec["np"],
+                               generator=torch.Generator().manual_seed(0), bn_groups=groups,
+                               mesh=mesh if sharded else None)
+
+        res = {"tp": _loss_grads(model(), shard, None, True, True, mesh=mesh,
+                                 gather=mesh.gather_params)}
+        if torch.distributed.get_rank() == 0:
+            res["one"] = _loss_grads(model(False), batch, None, True, True)
+        m = model()
+        step = steps.make_train_step(m, True, True, calibrate=True, device="cpu", mesh=mesh)
+        step(TrainState.create(m, True, True), shard, None, 1e-3, 1e-3, 1e-3, 0.5, 1.0)
+        res["local"] = _np(m.state_dict())
+        out[mode] = res
+    built = []
+
+    class CountedESM2(esm2.ESM2):
+        def __init__(self, *a, **k):
+            built.append(1)
+            super().__init__(*a, **k)
+
+    embed_pipeline.ESM2 = CountedESM2
+    esm2._ESM2_SIZES[12] = esm2.ESM2Config(**spec["esm"]["heads"])
+    embed_pipeline._BUCKETS, embed_pipeline._DRUG_BUCKETS = (48,), (32,)
+    table = types.SimpleNamespace(prot2ord=spec["proteins"], drug2ord=spec["drugs"])
+    cache = EmbeddingCache(os.path.join(d, "cache"), "toy", spec["nd"], 32)
+    embed_pipeline.generate_embeddings(table, cache, n_layer=12, device="cpu", verbose=False,
+                                       chemberta_cfg=ChemBERTaConfig(**spec["chemberta"]),
+                                       mesh=mesh)
+    mesh.barrier()
+    out["esm_built"] = len(built)
+    with open(os.path.join(d, f"rank{torch.distributed.get_rank()}_tp4.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 if __name__ == "__main__":
     for job in sys.argv[1].split(","):
-        {"step": job_step, "fit": job_fit}[job](sys.argv[2])
+        {"step": job_step, "fit": job_fit, "tp": job_tp, "tp4": job_tp4}[job](sys.argv[2])
