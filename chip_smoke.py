@@ -218,7 +218,26 @@ printing its own lines; any failure exits non-zero and prints no result:
    atol 5e-5); (b) ``Trainer.fast_dev_run`` on phase 9's data, DrugLAMP2C2P
    with ssl and cm on: 4 training batches over the host pipeline and the
    validation pass, finite losses, the launches of its steps and eval
-   batches, nothing written.  The run's total seconds are printed last.
+   batches, nothing written.
+
+17. switches — at ``Config()``, batch 16: (a) 20 f32 cls steps of DrugLAMP with the
+   per-leaf AdamW, each step's gradient also given to a ``FlatAdamW`` over a
+   copy of the starting parameters: within rtol 1e-5 / atol 1e-7 after the
+   steps; then one bf16 full-gate step (ssl, cm, calibrate) of DrugLAMP2C2P,
+   packed GCN, with the per-leaf and with the flat optimizers
+   (``TrainState.create(flat_opt=)``) from one seed and one set of weights:
+   equal losses, parameters within rtol 1e-5 / atol 1e-7, each
+   kernel's launches, the step by CUDA events, its peak memory and its
+   kernel launches (profiled); (b) the 3-epoch recipe fit (phase 11's, on
+   128 training pairs and 64 validation and test pairs) with asynchronous
+   checkpoint writes and with ``DRUGLAMP_SYNC_CKPT=1``: equal files, each
+   epoch's wall time, and a resume from the asynchronous epoch-2
+   ``ckpt_last.pt`` equal to the unbroken run; (c)
+   ``utils.profiling.device_time_ms`` of the paired forward beside phase 5's
+   ``device_ms`` (finite and positive), and ``trace()`` writes a non-empty
+   trace; (d) the native packer builds, and a dense batch (``compact=False``,
+   bf16 LLM arrays, the native adjacency) gives DrugLAMP's bf16 forward of
+   the compact batch bit for bit.  The run's total seconds are printed last.
 
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
@@ -1882,6 +1901,7 @@ def fit_checks(torch, attention, gcn, train, val, test, data, emb):
         def save_keeping_epoch2(path, snapshot):
             save(path, snapshot)
             if path.endswith("ckpt_last.pt") and t.epoch == 2:
+                t._join_ckpt()             # the write done
                 shutil.copy(path, epoch2)
 
         t._epoch_fn, t._save = timed_epoch_fn, save_keeping_epoch2
@@ -2969,6 +2989,7 @@ def dp_cli(torch, attention, gcn, mesh, rank, spec):
         saved[2](self, path, snapshot)
         if self.epoch == 1 and path.startswith(os.path.join(root, "c") + os.sep) \
                 and path.endswith("ckpt_last.pt"):
+            self._join_ckpt()              # the write done, and its barrier passed
             if self.primary:
                 for name in ("ckpt_best.pt", "ckpt_last.pt"):
                     shutil.copy(os.path.join(root, "c", name), os.path.join(root, "r", name))
@@ -3735,6 +3756,310 @@ def fast_dev_checks(torch, attention, gcn, train, val, data, emb):
 FAST_DEV_BATCHES = 4
 
 
+# --- phase 17: the flat AdamW, the checkpoint writes, the profiling tools and the ----------
+# --- dense host batches ---------------------------------------------------------------------
+
+SWITCH_FIT_EPOCHS = 3
+SWITCH_FIT_PAIRS = 128        # (b)'s fit: 8 steps an epoch, one eval batch of each split
+FLAT_STEPS = 20
+
+
+def flat_opt_checks(torch, attention, gcn):
+    """Phase 17 (a): FLAT_STEPS f32 cls steps of DrugLAMP at ``Config()``
+    with the per-leaf AdamW, the gradient each step applied given to a
+    ``FlatAdamW`` over a copy of the starting parameters: the copy within
+    rtol 1e-5 / atol 1e-7 of the model after the steps; then one bf16
+    full-gate step of DrugLAMP2C2P (packed GCN) with the per-leaf and with
+    the flat optimizers from one seed and one set of weights: equal losses,
+    parameters within rtol 1e-5 / atol 1e-7, each kernel's launches; the
+    step by CUDA events, its peak memory (nothing of the other optimizer's
+    run resident) and its kernel launches (profiled) → the launches of the
+    two counted steps, the main path of this phase."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import FlatAdamW, TrainState, apply_optimizer
+    from druglamp_tpu_torch.train.steps import make_train_step
+    from druglamp_tpu_torch.utils.synthetic import make_batch
+
+    base = Config()
+    cfg32 = dataclasses.replace(base, solver=dataclasses.replace(base.solver,
+                                                                 compute_dtype="float32"))
+    model = build_model("DrugLAMP", cfg32, generator=torch.Generator().manual_seed(SEED))
+    model.to(DEVICE)
+    shadow = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+    flat = FlatAdamW(shadow)
+    state = TrainState.create(model, flat_opt=False)
+    step = make_train_step(model, False, False, device=DEVICE)
+    batch = make_batch(cfg32, TRAIN_B, seed=SEED, n_drug_feature=384, n_prot_feature=640)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    for _ in range(FLAT_STEPS):
+        step(state, batch, gen, TRAIN_LR)
+        for q, p in zip(shadow, model.parameters()):
+            q.grad = p.grad
+        apply_optimizer(flat, TRAIN_LR)
+    torch.cuda.synchronize()
+    worst, bad = 0.0, []
+    for (name, p), q in zip(model.named_parameters(), shadow):
+        worst = max(worst, (p - q).abs().max().item())
+        if not torch.allclose(q, p, rtol=1e-5, atol=1e-7):
+            bad.append(name)
+    print(f"  a: {FLAT_STEPS} f32 cls steps, the flat AdamW on each step's gradients against "
+          f"the per-leaf AdamW: {len(shadow)} leaves ({sum(q.numel() for q in shadow)} entries), "
+          f"max |Δp| {worst:.3e}, {len(bad)} outside rtol 1e-5 / atol 1e-7; count "
+          f"{int(flat.count)}", flush=True)
+    if bad:
+        fail(f"phase 17 a: the flat AdamW disagrees with the per-leaf one: {bad[:5]}")
+    del model, state, step, shadow, flat
+
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    batch = full_gate_batch(torch, base)
+    main_launches, runs = {}, {}
+    for flat_opt in (False, True):
+        label = "flat" if flat_opt else "per-leaf"
+        model = build_model("DrugLAMP2C2P", base, generator=torch.Generator().manual_seed(SEED))
+        model.to(DEVICE)
+        state = TrainState.create(model, True, True, flat_opt=flat_opt)
+        step = make_train_step(model, True, True, calibrate=True, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+        reset_counts(attention, gcn)
+        out = step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, 1e-3)
+        torch.cuda.synchronize()
+        launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+        for k, v in launches.items():
+            main_launches[k] = main_launches.get(k, 0) + v
+        runs[label] = ([float(getattr(out, k)) for k in ("cls_loss", "ssl_loss", "cm_loss",
+                                                          "cm_weight")],
+                       [p.detach().clone() for p in model.parameters()])
+        run = lambda: step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN,   # noqa: E731
+                           out.cm_weight)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, run, iters=3, reps=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profiling(torch) as prof:
+            last = run()
+        n_kernels = sum(e.count for e in device_kernels(torch, prof.key_averages()))
+        print(f"  a: bf16 full-gate step with the {label} AdamW: launches {launches}; "
+              f"{ms:.2f} ms (CUDA events, median of 3 x 3), peak {peak:.3f} GiB, {n_kernels} "
+              f"kernel launches a step; losses {runs[label][0]}", flush=True)
+        if not all(math.isfinite(float(getattr(last, k)))
+                   for k in ("cls_loss", "ssl_loss", "cm_loss")):
+            fail(f"phase 17 a: non-finite loss with the {label} AdamW")
+        del model, state, step, out, last, run
+    (l0, p0), (l1, p1) = runs["per-leaf"], runs["flat"]
+    worst = max((a - b).abs().max().item() for a, b in zip(p0, p1))
+    bad = sum(not torch.allclose(b, a, rtol=1e-5, atol=1e-7) for a, b in zip(p0, p1))
+    print(f"  a: flat against per-leaf after the full-gate step: losses equal {l0 == l1}, max "
+          f"|Δp| {worst:.3e}, {bad} of {len(p0)} leaves outside rtol 1e-5 / atol 1e-7", flush=True)
+    if l0 != l1 or bad:
+        fail(f"phase 17 a: the flat full-gate step disagrees: losses {l1} vs {l0}, {bad} leaves")
+    return main_launches
+
+
+def head_split(ds, n: int):
+    """The first ``n`` pairs of a dataset split (a shallow copy; the same
+    entity table)."""
+    import copy
+
+    out = copy.copy(ds)
+    out.rows, out.drug_ords, out.prot_ords, out.labels = (
+        ds.rows[:n], ds.drug_ords[:n], ds.prot_ords[:n], ds.labels[:n])
+    return out
+
+
+def checkpoint_checks(torch, train, val, test, data, emb):
+    """Phase 17 (b): the recipe's SWITCH_FIT_EPOCHS-epoch fit
+    (DrugLAMP2C2P, bf16, packed GCN, ``ckpt_every`` 1) on the first
+    SWITCH_FIT_PAIRS training pairs and EVAL_B validation and test pairs,
+    with asynchronous writes and with ``DRUGLAMP_SYNC_CKPT=1``: equal files, each epoch's wall
+    time; a Trainer from other weights resumed from the asynchronous epoch-2
+    ``ckpt_last.pt`` ends with the unbroken run's."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.loader import BatchLoader
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.trainer import Trainer
+    from druglamp_tpu_torch.utils.logging import ExperimentLogger
+
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    base = Config()
+    cfg = dataclasses.replace(
+        base, rs=dataclasses.replace(base.rs, ssl=True, cm=True, init_epoch=2, epoch_step=2),
+        solver=dataclasses.replace(base.solver, max_epoch=SWITCH_FIT_EPOCHS, ckpt_every=1,
+                                   cm_lr=CM_LR, eval_batch_size=EVAL_B))
+    splits = (BatchLoader(head_split(train, SWITCH_FIT_PAIRS), TRAIN_B, shuffle=True,
+                          drop_last=True, seed=SEED),
+              BatchLoader(head_split(val, EVAL_B), EVAL_B, shuffle=False, drop_last=False),
+              BatchLoader(head_split(test, EVAL_B), EVAL_B, shuffle=False, drop_last=False))
+
+    def trainer(work, seed, log=None):
+        model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(seed))
+        t = Trainer(model, cfg, *splits, logger=log, work_dir=work, embed_store=emb,
+                    device_data=data, device=DEVICE)
+        t.patience = base.solver.max_epoch // 4
+        return t, TrainState.create(model, True, True)
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return a == b
+
+    with tempfile.TemporaryDirectory() as tmp:
+        walls = {}
+        for label, sync in (("async", "0"), ("sync", "1")):
+            os.environ["DRUGLAMP_SYNC_CKPT"] = sync
+            log = ExperimentLogger(tmp, label, quiet=True)
+            t, state = trainer(os.path.join(tmp, label), SEED, log)
+            save = t._save
+
+            def keep_epoch2(path, snapshot, t=t, label=label):
+                save(path, snapshot)
+                if path.endswith("ckpt_last.pt") and t.epoch == 2:
+                    t._join_ckpt()
+                    shutil.copy(path, os.path.join(tmp, f"{label}_epoch2.pt"))
+
+            t._save = keep_epoch2
+            t0 = time.perf_counter()
+            t.run_experiment(SEED, state=state)
+            fit_s = time.perf_counter() - t0
+            log.close()
+            with open(log.jsonl_path) as f:
+                walls[label] = [r["epoch_time_s"] for r in map(json.loads, f) if "train_loss" in r]
+            print(f"  b: {label} checkpoint writes (async_ckpt {t.async_ckpt}): epoch walls "
+                  f"{['%.1f ms' % (w * 1e3) for w in walls[label]]} (host clock, the epoch's "
+                  f"call and its loss sums), fit and test {fit_s:.1f} s", flush=True)
+            del t, state
+        os.environ["DRUGLAMP_SYNC_CKPT"] = "0"
+        differ = [name for name in ("ckpt_best.pt", "ckpt_last.pt")
+                  if not same(load(os.path.join(tmp, "async", name)),
+                              load(os.path.join(tmp, "sync", name)))]
+        differ += [] if same(load(os.path.join(tmp, "async_epoch2.pt")),
+                             load(os.path.join(tmp, "sync_epoch2.pt"))) else ["epoch 2"]
+        resume = os.path.join(tmp, "resumed")
+        os.makedirs(resume)
+        shutil.copy(os.path.join(tmp, "async_epoch2.pt"), os.path.join(resume, "ckpt_last.pt"))
+        tr, state = trainer(resume, SEED + 1)
+        tr.restore(os.path.join(resume, "ckpt_last.pt"), state)
+        tr.fit(state, SEED, start_epoch=tr.epoch + 1)
+        resumed = same(load(os.path.join(resume, "ckpt_last.pt")),
+                       load(os.path.join(tmp, "async", "ckpt_last.pt")))
+        print(f"  b: async against sync files (best, last, epoch 2): {differ or 'all equal'}; "
+              f"the resume from the async epoch-2 ckpt_last.pt ends equal to the unbroken "
+              f"run: {resumed}", flush=True)
+        if differ or not resumed or len(walls["async"]) != SWITCH_FIT_EPOCHS:
+            fail(f"phase 17 b: async checkpoints: differ {differ}, resumed equal {resumed}")
+
+
+class SeededEmbeddings:
+    """Seeded random embeddings at the real token lengths, in memory: a
+    drug len(SMILES) + 2 rows, a protein min(len, max_resis) + 2 (phase
+    17 d's embedding source)."""
+
+    def __init__(self, table, cfg):
+        import numpy as np
+
+        self.n_drug_feature, self.n_prot_feature = 384, 640
+        rng = np.random.RandomState(SEED + 21)
+        self._drug = {o: rng.randn(min(len(s) + 2, cfg.drug.max_nodes), 384).astype(np.float32)
+                      for s, o in table.drug2ord.items()}
+        self._prot = {o: rng.randn(min(len(s), cfg.protein.max_resis) + 2, 640)
+                      .astype(np.float32) for s, o in table.prot2ord.items()}
+
+    def drug(self, ordinal):
+        return self._drug[ordinal]
+
+    def prot(self, ordinal):
+        return self._prot[ordinal]
+
+
+def profiling_dense_checks(torch, attention, train, fwd_record):
+    """Phase 17 (c) and (d): ``utils.profiling.device_time_ms`` of the paired
+    forward at the serving shape beside ``device_ms``'s reading (phase 5),
+    and a ``trace``; the native packer built on this machine, and a dense
+    batch (``compact=False``, bf16 LLM arrays, native adjacency) through
+    ``decode_batch`` giving the compact batch's forward bit for bit."""
+    import tempfile
+
+    from druglamp_tpu_torch.chem import native
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.encoding import decode_batch
+    from druglamp_tpu_torch.data.loader import BatchLoader
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.steps import to_device
+    from druglamp_tpu_torch.utils import profiling as prof_mod
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    q, k, v, q_o = make_operands(torch, g, 32, 4, 256, 256, 64, torch.bfloat16, True)
+    ms = prof_mod.device_time_ms(attention.paired_attention, q, k, v, q_o, n1=10, n2=40)
+    with tempfile.TemporaryDirectory() as tmp:
+        with prof_mod.trace(tmp):
+            attention.paired_attention(q, k, v, q_o)
+        files = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        sizes = [os.path.getsize(f) for f in files]
+    print(f"  c: paired forward bf16 B=32: utils.profiling.device_time_ms {ms * 1e3:.2f} us a "
+          f"call (CUDA events, two-point 10/40 calls: the host's issue rate when it exceeds the "
+          f"kernel's) beside device_ms {fwd_record['ms'] * 1e3:.2f} us (the profiler's kernel "
+          f"time, phase 5); trace(): {len(files)} file(s), {sizes} bytes", flush=True)
+    if not (math.isfinite(ms) and ms > 0) or not files or not all(sizes):
+        fail(f"phase 17 c: device_time_ms {ms}, trace files {files} {sizes}")
+
+    t0 = time.perf_counter()
+    built = native.available()
+    print(f"  d: native runtime {'built' if built else 'NOT built'} at "
+          f"{native.loaded_path()} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not built:
+        fail("phase 17 d: the native featurization runtime did not build on this machine")
+    cfg = Config()
+    emb = SeededEmbeddings(train.table, cfg)
+    dense = BatchLoader(train, TRAIN_B, shuffle=False, drop_last=False, embeddings=emb,
+                        compact=False).first_batch()
+    compact = BatchLoader(train, TRAIN_B, shuffle=False, drop_last=False,
+                          embeddings=emb).first_batch()
+    model = build_model("DrugLAMP", cfg, generator=torch.Generator().manual_seed(SEED))
+    model.to(DEVICE).eval()
+    with torch.no_grad():
+        dense_in = decode_batch(to_device(dense, torch.device(DEVICE)))
+        compact_in = decode_batch(to_device(compact, torch.device(DEVICE)), keep_packed=False)
+        a = model(dense_in)["score"]
+        b = model(compact_in)["score"]
+    torch.cuda.synchronize()
+    keys = sorted(k for k in dense if k != "cm")
+    print(f"  d: dense batch of {TRAIN_B} ({', '.join(f'{k} {dense[k].dtype}' for k in keys)}; "
+          f"{sum(dense[k].nbytes for k in keys) / 1e6:.1f} MB against the compact "
+          f"{sum(v.nbytes for k, v in compact.items() if k != 'cm') / 1e6:.1f} MB): DrugLAMP "
+          f"bf16 forward scores {a.flatten()[:4].tolist()}, equal to the compact batch's "
+          f"{torch.equal(a, b)}", flush=True)
+    if not torch.equal(a, b) or not torch.isfinite(a).all():
+        fail("phase 17 d: the dense batch's forward differs from the compact batch's")
+    del model
+
+
+def switch_checks(torch, attention, gcn, smi, train, val, test, data, emb, fwd_record):
+    """Phase 17 → the launches of its main path ((a)'s bf16 full-gate steps)."""
+    print(f"  card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    launches = flat_opt_checks(torch, attention, gcn)
+    print(f"  (a took {time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    checkpoint_checks(torch, train, val, test, data, emb)
+    print(f"  (b took {time.perf_counter() - t0:.1f} s)", flush=True)
+    profiling_dense_checks(torch, attention, train, fwd_record)
+    return launches
+
+
 @contextlib.contextmanager
 def profiling(torch, cpu: bool = False):
     """A profiler window (the card's activity, and the host's with ``cpu``)
@@ -4017,9 +4342,14 @@ def main() -> None:
     print(f"  card: {smi}", flush=True)
     lin_launches = linattn_checks(torch, attention)
     fdr_launches = fast_dev_checks(torch, attention, gcn, train, val, data, emb)
+
+    phase("17 the training switches (flat AdamW, async checkpoints), profiling, the dense "
+          "batches")
+    sw_launches = switch_checks(torch, attention, gcn, smi, train, val, test, data, emb,
+                                records[0])
     del train, val, test, data, emb
     later = (gate_launches, fit_launches, cli_launches, enc_launches, dp_launches, tp_launches,
-             lin_launches, fdr_launches)
+             lin_launches, fdr_launches, sw_launches)
     for rec in records:        # the launches of the main path, phases 10 to 16 included
         keys = ([rec["name"]] if rec["name"] != "gcn_packed_matmul"
                 else ["gcn_packed_matmul", "gcn_packed_matmul_bwd"])

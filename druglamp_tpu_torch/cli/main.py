@@ -232,6 +232,11 @@ def main(argv=None) -> int:
 
     np.random.seed(cfg.solver.seed)
 
+    from druglamp_tpu_torch.chem import native
+
+    if not native.available():
+        print(native.INFO_NOT_BUILT, file=sys.stderr)
+
     timestamp = _rank0_value(mesh, time.strftime("%m%d_%H%M%S"))
     exp_name = f"{args.data}-{args.split}-{args.model}-seed{args.seed}-{timestamp}"
     work_dir = args.work_dir or os.path.join(cfg.result.output_dir, exp_name)

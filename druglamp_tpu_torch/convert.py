@@ -28,6 +28,13 @@ map by ``from_jax_encoder_params``: ``layer_{i}`` → ``layers.{i}``, dense
 
 ``load_jax_params_sharded`` loads one flax tree into the M ranks of a model
 axis, each keeping its pieces.
+
+``from_jax_flat_opt`` / ``to_jax_flat_opt`` carry the JAX package's flat
+AdamW state (``FlatAdamWState``: ``m`` and ``v`` raveled by
+``jax.flatten_util.ravel_pytree``, i.e. the params tree's leaves in sorted
+key order, and the int32 ``count``) into a ``train.state.FlatAdamW``'s
+state (raveled in ``model.parameters()`` order, each leaf in torch layout),
+and back.
 """
 
 from __future__ import annotations
@@ -157,4 +164,59 @@ def to_jax_paths(tensors: Mapping[str, torch.Tensor], model: nn.Module) -> Dict[
             path = head + [tail]
             value = value.T if _LEAF_RENAMES.get(tail, (tail, False))[1] else value
         out["/".join(path)] = np.array(value)            # a copy: the model updates in place
+    return out
+
+
+def _raveled_leaves(tree: Mapping, prefix: str = ""):
+    """[(flax path, shape)] in ``ravel_pytree``'s order: a dict's keys
+    sorted, depth first."""
+    out = []
+    for k in sorted(tree):
+        key = f"{prefix}/{k}" if prefix else str(k)
+        v = tree[k]
+        out += _raveled_leaves(v, key) if isinstance(v, Mapping) else [(key, np.shape(v))]
+    return out
+
+
+def from_jax_flat_opt(state: Mapping, params: Mapping, model: nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """A JAX ``FlatAdamWState`` ({"m", "v", "count"} as numpy arrays) over
+    the flax ``params`` → ``FlatAdamW.load_state_dict``'s {"m", "v",
+    "count"} for ``model``.  Raises as ``from_jax_params`` does."""
+    leaves = _raveled_leaves(params)
+    names = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    out: Dict[str, torch.Tensor] = {}
+    for key in ("m", "v"):
+        flat = np.asarray(state[key], np.float32)
+        sizes = [int(np.prod(shape)) for _, shape in leaves]
+        if sum(sizes) != flat.size:
+            raise ValueError(f"{key}: {flat.size} entries for {sum(sizes)} parameter entries")
+        mapped = {}
+        for (path, shape), part in zip(leaves, np.split(flat, np.cumsum(sizes)[:-1])):
+            name, value = _map_leaf(path, part.reshape(shape))
+            if names.get(name) != value.shape:
+                raise KeyError(f"flax leaf {path!r} maps to {name!r} {value.shape}, which the "
+                               "model does not have")
+            mapped[name] = value
+        missing = sorted(set(names) - set(mapped))
+        if missing:
+            raise KeyError(f"model parameters missing from the flat state: {missing}")
+        out[key] = torch.from_numpy(np.concatenate([mapped[n].reshape(-1) for n in names]))
+    out["count"] = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32)
+    return out
+
+
+def to_jax_flat_opt(state: Mapping[str, torch.Tensor], params: Mapping, model: nn.Module
+                    ) -> Dict[str, np.ndarray]:
+    """The inverse of ``from_jax_flat_opt``: a ``FlatAdamW.state_dict()``
+    over ``model`` → {"m", "v" (raveled as ``ravel_pytree`` ravels the flax
+    ``params``), "count"} as numpy arrays."""
+    named = list(model.named_parameters())
+    out: Dict[str, np.ndarray] = {}
+    for key in ("m", "v"):
+        parts = state[key].detach().cpu().float().split([p.numel() for _, p in named])
+        by_path = to_jax_paths({n: t.view(p.shape) for (n, p), t in zip(named, parts)}, model)
+        out[key] = np.concatenate([by_path[path].reshape(-1)
+                                   for path, _ in _raveled_leaves(params)])
+    out["count"] = np.asarray(int(state["count"]), np.int32)
     return out

@@ -64,6 +64,8 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from druglamp_tpu_torch.train.state import FlatAdamW
+
 BUCKET_ELEMENTS = 1 << 23          # f32 elements of one gradient all-reduce (32 MiB)
 
 # How a sharded tensor splits over the model axis (torch's (out, in) weights):
@@ -409,12 +411,27 @@ class MeshContext:
     @torch.no_grad()
     def shard_state(self, model: torch.nn.Module, state, rules=_TP_RULES) -> Dict[str, str]:
         """``shard_params``, and each AdamW moment of ``state`` (a
-        ``TrainState``) cut as its parameter → the split."""
+        ``TrainState``) cut as its parameter → the split.  A flat AdamW's
+        buffers are unraveled by the whole parameters' shapes, each leaf cut
+        so, and this rank's pieces raveled again."""
         names = {id(p): name for name, p in model.named_parameters()}
+        shapes = {id(p): p.shape for p in model.parameters()}
         split = self.shard_params(model, rules)
         n, m = self.n_model, self.model_rank
         for opt in (state.opt_cls, state.opt_ssl, state.opt_cm):
             if opt is None:
+                continue
+            if isinstance(opt, FlatAdamW):
+                if opt.m.numel() == sum(p.numel() for p in opt.params):
+                    continue                      # already this rank's
+                kinds = [split.get(names.get(id(p))) for p in opt.params]
+                sizes = [shapes[id(p)].numel() for p in opt.params]
+                for key in ("m", "v"):
+                    leaves = getattr(opt, key).split(sizes)
+                    setattr(opt, key, torch.cat([
+                        (leaf if kind is None
+                         else piece(leaf.view(shapes[id(p)]), kind, n, m)).reshape(-1)
+                        for leaf, kind, p in zip(leaves, kinds, opt.params)]))
                 continue
             for p, st in opt.state.items():
                 kind = split.get(names.get(id(p)))

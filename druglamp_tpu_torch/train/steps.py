@@ -54,10 +54,15 @@ weight is carried from step to step as a device scalar): nothing inside the
 loop (the profiler range ``epoch_step.loop``) reads a value back or waits
 for the device, the calibrating epoch included.
 
-Not ported: the flat optimizer, remat, ``make_repeat_step``, and the drivers
-over host-stacked batches (``make_epoch_step``, ``make_eval_scan``): they
-exist for ``lax.scan``, and in eager PyTorch a stacked chunk is only a loop
-of the same steps after an extra host copy.
+The flat optimizer is ``train/state.py::FlatAdamW``.  Not ported: remat
+(``DRUGLAMP_REMAT``): the step takes three gradients of one retained graph,
+and a checkpointed region is rebuilt whole by the first gradient that
+reaches it and held, in part, until the graph is freed, so remat over the
+JAX package's region (the whole forward and its losses) cannot keep less
+than the eager step keeps.  Nor ``make_repeat_step``, and the drivers over
+host-stacked batches (``make_epoch_step``, ``make_eval_scan``): they exist
+for ``lax.scan``, and in eager PyTorch a stacked chunk is only a loop of the
+same steps after an extra host copy.
 """
 
 from __future__ import annotations

@@ -46,7 +46,11 @@ Per epoch (1-based, as the reference's ``cur_epoch``):
   (parameters and BatchNorm buffers), the three AdamW states and the step
   count, and the host state: the CM weight, the margin schedule, the SSL/CM
   schedule counts, the epoch, the best AUSum and epoch, the epochs without
-  improvement.
+  improvement.  A save copies the snapshot to pinned host memory and waits
+  for that copy; the file is written on a worker thread that touches no
+  CUDA tensor (``DRUGLAMP_SYNC_CKPT=1``: on the calling thread), and that
+  write is joined before the next save, in ``restore``, when ``fit`` ends
+  and before ``run_experiment`` reads ``ckpt_best.pt``.
 
 ``run_experiment`` restores ``ckpt_last.pt`` with ``resume=True``, fits,
 then tests on the best state, which the model holds afterwards.
@@ -74,6 +78,7 @@ import collections
 import copy
 import itertools
 import os
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -91,7 +96,7 @@ from druglamp_tpu_torch.train.schedule import cosine_warmup_restarts_lr
 from druglamp_tpu_torch.train.state import TrainState
 from druglamp_tpu_torch.train.steps import (EpochOutput, make_epoch_step_gather,
                                             make_eval_scan_gather, make_eval_step,
-                                            make_train_step, to_device)
+                                            make_train_step, to_device, tree_map)
 from druglamp_tpu_torch.utils.logging import ExperimentLogger
 
 
@@ -183,6 +188,10 @@ class Trainer:
         self.best_epoch = -1
         self._best_state: Optional[Dict[str, Any]] = None   # a device copy
         self._best_dirty = False
+        # checkpoint writes: on a worker thread unless DRUGLAMP_SYNC_CKPT=1
+        self.async_ckpt = os.environ.get("DRUGLAMP_SYNC_CKPT", "0") != "1"
+        self._ckpt_write: Optional[_CheckpointWrite] = None   # the write in flight
+        self._ckpt_owed = False     # a save whose barrier over the ranks is still to pass
 
     # --- plumbing -----------------------------------------------------------
 
@@ -242,6 +251,17 @@ class Trainer:
     # --- fit / evaluate -----------------------------------------------------
 
     def fit(self, state: TrainState, seed: int, start_epoch: int = 1) -> TrainState:
+        """Train from ``start_epoch`` (module docstring); the last checkpoint
+        write is done when it returns, and when it raises."""
+        try:
+            state = self._fit(state, seed, start_epoch)
+        except BaseException:
+            self._join_ckpt(ranks=False)
+            raise
+        self._join_ckpt()
+        return state
+
+    def _fit(self, state: TrainState, seed: int, start_epoch: int) -> TrainState:
         best_path = os.path.join(self.work_dir, "ckpt_best.pt")
         last_path = os.path.join(self.work_dir, "ckpt_last.pt")
         if self.epochs_no_improve >= self.patience:
@@ -467,13 +487,49 @@ class Trainer:
                 "margin": self.margin_sched.state_dict()}
 
     def _save(self, path: str, snapshot: Dict[str, Any]) -> None:
-        """Rank 0 writes; over several ranks every rank waits until it has."""
+        """Rank 0 writes ``snapshot`` and the host state to ``path``: a copy
+        to pinned host memory now, the file on a worker thread (on this one
+        with ``DRUGLAMP_SYNC_CKPT=1``).  Over several ranks every rank
+        passes a barrier once the file is there, at the next ``_join_ckpt``
+        (at once when synchronous)."""
+        self._join_ckpt()
         if self.primary:
-            tmp = path + ".tmp"
-            torch.save({**snapshot, "host": self._host_state()}, tmp)
-            os.replace(tmp, path)
-        if self.grid is not None:
-            self.grid.barrier()
+            payload = self._host_copy({**snapshot, "host": self._host_state()})
+            if self.async_ckpt:
+                self._ckpt_write = _CheckpointWrite(payload, path)
+                self._ckpt_write.start()
+            else:
+                _write_checkpoint(payload, path)
+        self._ckpt_owed = True
+        if not self.async_ckpt:
+            self._join_ckpt()
+
+    def _host_copy(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """``tree`` with each CUDA tensor copied to pinned host memory on the
+        current stream, once those copies are done."""
+        def one(v):
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                return host.copy_(v, non_blocking=True)
+            return v
+        out = tree_map(one, tree)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _join_ckpt(self, ranks: bool = True) -> None:
+        """Wait for the checkpoint write in flight (raising what it raised),
+        then, over several ranks and with ``ranks``, pass the barrier its
+        save owes, so no rank reads a file that is not there yet."""
+        write, self._ckpt_write = self._ckpt_write, None
+        if write is not None:
+            write.join()
+            if write.error is not None:
+                raise write.error
+        if self._ckpt_owed:
+            self._ckpt_owed = False
+            if ranks and self.grid is not None:
+                self.grid.barrier()
 
     def _load(self, snapshot: Dict[str, Any], state: TrainState) -> None:
         self.model.load_state_dict(snapshot["model"])
@@ -482,6 +538,7 @@ class Trainer:
     def restore(self, path: str, state: TrainState, load_host: bool = True) -> TrainState:
         """Load a checkpoint into the model and ``state`` (and with
         ``load_host`` the host state); a missing file changes nothing."""
+        self._join_ckpt()
         if not os.path.exists(path):
             return state
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
@@ -497,3 +554,28 @@ class Trainer:
             self.best_epoch = int(host["best_epoch"])
             self.margin_sched.load_state_dict(host["margin"])
         return state
+
+
+def _write_checkpoint(payload: Dict[str, Any], path: str) -> None:
+    """``torch.save`` to a temporary name, then renamed over ``path``."""
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+class _CheckpointWrite(threading.Thread):
+    """``_write_checkpoint`` on a thread of its own; what it raises is kept in
+    ``error``.  The payload stays referenced by this object, so its pinned
+    buffers are freed by the thread that drops it after ``join``, never by
+    the writer."""
+
+    def __init__(self, payload: Dict[str, Any], path: str):
+        super().__init__(name="ckpt-write")
+        self.payload, self.path = payload, path
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        try:
+            _write_checkpoint(self.payload, self.path)
+        except BaseException as e:      # raised again by Trainer._join_ckpt
+            self.error = e

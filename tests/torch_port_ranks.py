@@ -1,5 +1,6 @@
-"""The rank processes of tests/test_torch_port_parallel.py and
-tests/test_torch_port_tensor_parallel.py: each job runs in every rank of a
+"""The rank processes of tests/test_torch_port_parallel.py,
+tests/test_torch_port_tensor_parallel.py, tests/test_torch_port_flat_opt.py and
+tests/test_torch_port_checkpoint_chunks.py: each job runs in every rank of a
 gloo process group on the CPU, started as torchrun starts them
 (``run_ranks``), and reads its inputs from and writes its results to a
 directory the test gives it:
@@ -190,6 +191,7 @@ def job_fit(d: str) -> None:
         raw_save(self, path, snapshot)
         if (self.epoch == 1 and os.path.basename(path) == "ckpt_last.pt"
                 and os.path.basename(os.path.dirname(path)) == "gather"):
+            self._join_ckpt()              # the write done, and its barrier passed
             if self.primary:
                 os.makedirs(os.path.join(d, "resume"), exist_ok=True)
                 for name in ("ckpt_best.pt", "ckpt_last.pt"):
@@ -512,6 +514,123 @@ def job_tp4(d: str) -> None:
         pickle.dump(out, f)
 
 
+# --- the flat AdamW and the checkpoint writes over ranks --------------------------
+
+def _flat_moments(model, state, gather=None):
+    """``_moments`` of a TrainState of ``FlatAdamW``s: {optimizer: {"exp_avg"
+    | "exp_avg_sq": {name: moment}}}, each buffer unraveled by the
+    parameters' (local) shapes; a sharded model's gathered by ``gather``."""
+    out = {}
+    named = list(model.named_parameters())
+    for opt_name in ("opt_cls", "opt_ssl", "opt_cm"):
+        opt = getattr(state, opt_name)
+        if opt is None:
+            continue
+        out[opt_name] = {}
+        for key, buf in (("exp_avg", opt.m), ("exp_avg_sq", opt.v)):
+            parts = buf.split([p.numel() for _, p in named])
+            leaves = {n: t.view(p.shape) for (n, p), t in zip(named, parts)}
+            out[opt_name][key] = _np(gather(model, values=leaves) if gather is not None
+                                     else leaves)
+    return out
+
+
+def job_flat_tp(d: str) -> None:
+    """``flat_tp.pkl``: {"cfg", "nd", "np", "batch", "lrs"} on a 1 × 2 grid:
+    in each grad mode two full-gate steps with ``FlatAdamW``s from seeded
+    weights, in one process and with ``MeshContext.shard_state`` between
+    them → rank{r}_flat_tp.pkl: the split, the first step's parameters, and
+    after the second the parameters (local and gathered), the losses and
+    the moments (gathered)."""
+    import torch
+
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh
+    from druglamp_tpu_torch.losses import masking
+    from druglamp_tpu_torch.train import steps
+    from druglamp_tpu_torch.train.state import FlatAdamW, TrainState
+
+    torch.set_num_threads(1)
+    masking.mlm_mask = fixed_mask
+    assert maybe_initialize_distributed("gloo", "cpu")
+    with open(os.path.join(d, "flat_tp.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    mesh = MeshContext(make_mesh(2))
+    batch = _tensors(spec["batch"])
+    lr, lr_ssl, lr_cm, margin, w0 = spec["lrs"]
+    out = {}
+    for grad_mode in steps.GRAD_MODES:
+        runs = out[grad_mode] = {}
+        for name in ("tp", "one"):
+            m = build_model("DrugLAMP2C2P", spec["cfg"], spec["nd"], spec["np"],
+                            generator=torch.Generator().manual_seed(0))
+            state = TrainState.create(m, True, True, flat_opt=True)
+            assert isinstance(state.opt_cls, FlatAdamW)
+            step = steps.make_train_step(m, True, True, calibrate=True, grad_mode=grad_mode,
+                                         device="cpu")
+            o = step(state, batch, torch.Generator().manual_seed(5), lr, lr_ssl, lr_cm, margin, w0)
+            first = _np(m.state_dict())
+            if name == "tp":
+                runs["split"] = mesh.shard_state(m, state)
+            o = step(state, batch, torch.Generator().manual_seed(6), lr, lr_ssl, lr_cm, margin,
+                     float(o.cm_weight))
+            gather = mesh.gather_params if name == "tp" else None
+            runs[name] = {"first": first, "local": _np(m.state_dict()),
+                          "whole": _np(gather(m)) if gather is not None else None,
+                          "losses": [float(o.cls_loss), float(o.ssl_loss), float(o.cm_loss)],
+                          "moments": _flat_moments(m, state, gather),
+                          "count": int(state.opt_cls.count)}
+    with open(os.path.join(d, f"rank{torch.distributed.get_rank()}_flat_tp.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def job_ckpt(d: str) -> None:
+    """``ckpt.pkl``: {"cfg", "nd", "np", "delay"}: a Trainer over the ranks
+    saves a checkpoint whose write on rank 0 starts ``delay`` seconds late,
+    asynchronously then with ``DRUGLAMP_SYNC_CKPT=1``; each rank notes
+    whether the file is there when ``_save`` returns and after
+    ``_join_ckpt``, then restores it → rank{r}_ckpt.pkl."""
+    import types
+
+    import torch
+
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train import trainer as trainer_mod
+    from druglamp_tpu_torch.train.state import TrainState
+
+    mesh, rank = _setup()
+    with open(os.path.join(d, "ckpt.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    write = trainer_mod._write_checkpoint
+
+    def late_write(payload, path):
+        time.sleep(spec["delay"])
+        write(payload, path)
+
+    trainer_mod._write_checkpoint = late_write
+    loader = types.SimpleNamespace(batch_size=4)
+    out = {}
+    for label, sync in (("async", "0"), ("sync", "1")):
+        os.environ["DRUGLAMP_SYNC_CKPT"] = sync
+        model = build_model("DrugLAMP2C2P", spec["cfg"], spec["nd"], spec["np"],
+                            generator=torch.Generator().manual_seed(0))
+        t = trainer_mod.Trainer(model, spec["cfg"], loader, loader, loader,
+                                work_dir=os.path.join(d, label), device="cpu", mesh=mesh)
+        state = TrainState.create(model, True, True)
+        path = os.path.join(d, label, "ckpt_last.pt")
+        t._save(path, t._snapshot(state))
+        after_save = os.path.exists(path)
+        t._join_ckpt()
+        after_join = os.path.exists(path)
+        t.restore(path, state)
+        out[label] = {"after_save": after_save, "after_join": after_join,
+                      "pending": t._ckpt_write is not None or t._ckpt_owed}
+    with open(os.path.join(d, f"rank{rank}_ckpt.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 if __name__ == "__main__":
     for job in sys.argv[1].split(","):
-        {"step": job_step, "fit": job_fit, "tp": job_tp, "tp4": job_tp4}[job](sys.argv[2])
+        {"step": job_step, "fit": job_fit, "tp": job_tp, "tp4": job_tp4, "flat_tp": job_flat_tp,
+         "ckpt": job_ckpt}[job](sys.argv[2])
