@@ -237,7 +237,24 @@ printing its own lines; any failure exits non-zero and prints no result:
    ``device_ms`` (finite and positive), and ``trace()`` writes a non-empty
    trace; (d) the native packer builds, and a dense batch (``compact=False``,
    bf16 LLM arrays, the native adjacency) gives DrugLAMP's bf16 forward of
-   the compact batch bit for bit.  The run's total seconds are printed last.
+   the compact batch bit for bit.
+
+18. remat — ``DRUGLAMP_REMAT`` (``train/remat.py``) on DrugLAMP2C2P's
+   full-gate step (ssl, cm, calibrate) at ``Config()``, packed GCN, per-leaf
+   AdamW, weights from SEED: (a) in f32, dropout as configured, in both grad
+   modes, ``dots`` and ``full`` (run under the caller's TF32 settings) give
+   ``none``'s losses, probabilities, CM weight, parameters, BatchNorm
+   buffers, AdamW moments and generator state bit for bit; (b) the same in
+   bf16 at batch 16, with each kernel's launches against the regions'
+   count (``REMAT_PER_STEP``: the forward kernels again in each recompute),
+   and for each mode one step with the allocator's history on
+   (``step_memory``: the bytes when the first gradient starts and at the
+   peak, and who holds them, by region; tables in
+   ``chiprun_out/remat_memory.txt``) and the step by CUDA events; fails
+   unless ``dots`` and ``full`` peak below ``none``; (c) a 4-step gather
+   epoch on phase 9's dataset under ``full`` equal to ``none``; (d) the
+   peaks at batch 64 under ``none`` and ``full``.  The run's total seconds
+   are printed last.
 
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
@@ -1587,19 +1604,19 @@ FULL_GATE_PER_STEP = {"paired_attention_fwd": 4, "self_attention_fwd": 2,
                       "gcn_packed_matmul": 3, "gcn_packed_matmul_bwd": 9}
 
 
-def full_gate_batch(torch, cfg):
-    """One compact batch of TRAIN_B from make_batch, with CM ground truth from
-    5 proteins and 7 drugs: proteins 0–3 have positives and negatives,
-    protein 4 negatives only (the triplet loss's fallback rows)."""
+def full_gate_batch(torch, cfg, B: int = TRAIN_B):
+    """One compact batch of B (default TRAIN_B) from make_batch, with CM ground
+    truth from 5 proteins and 7 drugs: proteins 0–3 have positives and
+    negatives, protein 4 negatives only (the triplet loss's fallback rows)."""
     import numpy as np
 
     from druglamp_tpu_torch.data.encoding import compact_batch
     from druglamp_tpu_torch.data.loader import build_cm_arrays
     from druglamp_tpu_torch.utils.synthetic import make_batch
 
-    host = make_batch(cfg, TRAIN_B, seed=SEED, n_drug_feature=384, n_prot_feature=640)
+    host = make_batch(cfg, B, seed=SEED, n_drug_feature=384, n_prot_feature=640)
     batch = compact_batch(host, (host["d_fill"] == 0).sum(1))
-    t = np.arange(TRAIN_B)
+    t = np.arange(B)
     pid, did = t % 5, t % 7
     batch["labels"] = ((t % 3 == 0) & (pid != 4)).astype(np.float32)
     cm = build_cm_arrays(pid, did, batch["labels"])
@@ -4060,6 +4077,378 @@ def switch_checks(torch, attention, gcn, smi, train, val, test, data, emb, fwd_r
     return launches
 
 
+# --- phase 18: DRUGLAMP_REMAT -------------------------------------------------------------------
+
+REMAT_MODES = ("none", "dots", "full")
+REMAT_EPOCH_STEPS = 4
+REMAT_BIG_B = 64             # (d): the peak at four times the recipe's batch
+REMAT_TIMED_STEPS = 3
+# what a full-gate step launches under dots and full: the forward kernels again in each
+# recompute, PMMA's blocks once (only the cls gradient reaches them), each GCN layer once for
+# each of the three gradients (all reach the GCN tokens); the backwards as eager
+REMAT_PER_STEP = {**FULL_GATE_PER_STEP,
+                  "paired_attention_fwd": 2 * FULL_GATE_PER_STEP["paired_attention_fwd"],
+                  "self_attention_fwd": 2 * FULL_GATE_PER_STEP["self_attention_fwd"],
+                  "gcn_packed_matmul": 4 * FULL_GATE_PER_STEP["gcn_packed_matmul"]}
+# an allocation's region: the outermost of these frames in its stack ((file, function) → label)
+REGION_FRAMES = {("models/ssl.py", "prot_mlm"): "SSL MLM part (re-encode included)",
+                 ("models/ssl.py", "drug_simsiam"): "SSL SimSiam part",
+                 ("models/cm.py", "forward"): "CM head",
+                 ("nn/gcn.py", "forward"): "MolecularGCN",
+                 ("nn/protein_cnn.py", "forward"): "ProteinCNN",
+                 ("models/base.py", "_encode_prot_llm"): "LLM adaptors",
+                 ("models/base.py", "_encode_drug_llm"): "LLM adaptors",
+                 ("models/base.py", "_fuse_v"): "fusion (GCA + MHLA + LN)",
+                 ("models/base.py", "_fuse_x"): "fusion (GCA + MHLA + LN)",
+                 ("nn/pmma.py", "forward"): "PMMA",
+                 ("nn/mlp.py", "forward"): "MLP head"}
+
+
+@contextlib.contextmanager
+def remat_env(mode: str):
+    """``DRUGLAMP_REMAT=mode`` for the block (the step reads it when built)."""
+    saved = os.environ.get("DRUGLAMP_REMAT")
+    os.environ["DRUGLAMP_REMAT"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("DRUGLAMP_REMAT")
+        else:
+            os.environ["DRUGLAMP_REMAT"] = saved
+
+
+def block_label(frames) -> str:
+    """The region of an allocation from its Python frames (innermost first): the
+    outermost ``REGION_FRAMES`` frame, marked when a checkpoint's recompute made
+    it; else its innermost frame of the port, or of the step."""
+    port = [f for f in frames if "druglamp_tpu_torch/" in f["filename"]]
+    recompute = any(f["filename"].endswith("utils/checkpoint.py") and f["name"] == "unpack_hook"
+                    for f in frames)
+    label = None
+    for f in port:
+        key = (f["filename"].split("druglamp_tpu_torch/")[-1], f["name"])
+        label = REGION_FRAMES.get(key, label)
+    if label is None:
+        if not port:
+            return "no frame of the port (autograd's C++ backward)"
+        f = port[0]
+        label = f"{f['filename'].split('druglamp_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+    return label + (" [recomputed]" if recompute else "")
+
+
+def block_site(frames) -> str:
+    """An allocation's innermost frame of the port, marked as ``block_label``
+    marks a recompute's."""
+    label = block_label(frames)
+    port = [f for f in frames if "druglamp_tpu_torch/" in f["filename"]]
+    if not port:
+        return label
+    f = port[0]
+    return (f"{f['filename'].split('druglamp_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+            + (" [recomputed]" if label.endswith("[recomputed]") else ""))
+
+
+def _by_label(blocks, key=block_label) -> list:
+    """[(bytes, label)] of (size, frames) blocks, largest first."""
+    sums = {}
+    for size, frames in blocks:
+        label = key(frames) if frames else "allocated before the step"
+        sums[label] = sums.get(label, 0) + size
+    return sorted(((b, k) for k, b in sums.items()), reverse=True)
+
+
+def step_memory(torch, run) -> dict:
+    """One call of ``run`` (a train step) with the allocator's history on
+    (``torch.cuda.memory._record_memory_history``, Python stacks): the bytes
+    allocated before it (``base``), when its first gradient starts (the
+    forward's and the losses' tensors that the graph keeps, ``at_grad``) and
+    at its peak (``torch.cuda.max_memory_allocated`` after a reset); the
+    holders at the first gradient (``memory_snapshot()``'s active blocks
+    then) and at the peak (the history's allocations and frees replayed up
+    to it), by region (``block_label``) and, at the peak, by allocating line
+    (``block_site``); and which part of the step the peak fell in (the
+    forward or one of its gradients)."""
+    grad = torch.autograd.grad
+    seen = {"highs": []}         # the peak so far when each gradient starts
+
+    def first_grad(*a, **k):
+        if not seen["highs"]:
+            torch.cuda.synchronize()
+            seen["at_grad"] = torch.cuda.memory_allocated()
+            seen["blocks"] = [(b["size"], b.get("frames")) for s in torch.cuda.memory_snapshot()
+                              for b in s["blocks"] if b["state"] == "active_allocated"]
+        seen["highs"].append(torch.cuda.max_memory_allocated())
+        return grad(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             max_entries=2_000_000)
+    torch.autograd.grad = first_grad
+    try:
+        run()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.autograd.grad = grad
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak = torch.cuda.max_memory_allocated()
+    stages = ("the forward", "the cls gradient", "the ssl gradient", "the cm gradient")
+    peak_in = stages[sum(h < peak for h in seen["highs"])]
+    live, cur, best, best_i = {}, 0, 0, -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            cur += e["size"]
+        elif e["action"] in ("free_requested", "free_completed") and e["addr"] in live:
+            cur -= live.pop(e["addr"])
+        if cur > best:
+            best, best_i = cur, i
+    live = {}
+    for e in trace[:best_i + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], e.get("frames") or [{"filename": "?", "line": 0,
+                                                               "name": "?"}])
+        elif e["action"] in ("free_requested", "free_completed"):
+            live.pop(e["addr"], None)
+    return {"base": base, "at_grad": seen.get("at_grad", 0), "peak": peak, "peak_in": peak_in,
+            "replayed_peak": base + best, "events": len(trace),
+            "at_grad_holders": _by_label(seen.get("blocks", [])),
+            "peak_holders": _by_label(live.values()),
+            "peak_sites": _by_label(live.values(), block_site)}
+
+
+def write_holders(f, label: str, mem: dict) -> None:
+    gib = 2 ** 30
+    f.write(f"{label}: base {mem['base'] / gib:.3f} GiB, at the first gradient "
+            f"{mem['at_grad'] / gib:.3f} GiB, peak {mem['peak'] / gib:.3f} GiB in "
+            f"{mem['peak_in']} (replayed "
+            f"{mem['replayed_peak'] / gib:.3f}, {mem['events']} allocator events)\n")
+    for key in ("at_grad_holders", "peak_holders", "peak_sites"):
+        f.write(f"  {key}:\n")
+        for b, name in mem[key][:40]:
+            f.write(f"    {b / 2 ** 20:10.1f} MiB  {name}\n")
+
+
+def remat_step_outputs(torch, model, state, out, gen) -> tuple:
+    """What a step must give the same under every mode: its outputs, every
+    parameter and buffer, each optimizer's moments, the generator's state;
+    copied to the host, so the next mode's step starts from the same
+    device memory."""
+    moments = [t.detach().cpu() for opt in (state.opt_cls, state.opt_ssl, state.opt_cm)
+               for p in model.parameters() for t in opt.state[p].values()
+               if isinstance(t, torch.Tensor)]
+    return ([getattr(out, k).detach().cpu() for k in ("cls_loss", "ssl_loss", "cm_loss",
+                                                       "probs", "cm_weight")],
+            {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            moments, gen.get_state())
+
+
+def remat_differ(a, b) -> list:
+    """The parts of two ``remat_step_outputs`` that are not bit-identical."""
+    (oa, sa, ma, ga), (ob, sb, mb, gb) = a, b
+    bad = [f"output {i}" for i, (x, y) in enumerate(zip(oa, ob)) if not _equal(x, y)]
+    bad += [k for k in sa if not _equal(sa[k], sb[k])]
+    bad += [f"moment {i}" for i, (x, y) in enumerate(zip(ma, mb)) if not _equal(x, y)]
+    return bad + ([] if _equal(ga, gb) else ["generator"])
+
+
+def _equal(x, y) -> bool:
+    return x.shape == y.shape and x.dtype == y.dtype and x.equal(y)
+
+
+def remat_step(torch, cfg, mode, batch, gen_seed, grad_mode="per_loss"):
+    """DrugLAMP2C2P's full-gate step under ``DRUGLAMP_REMAT=mode``, weights
+    from SEED → (model, state, step, generator)."""
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_train_step
+
+    model = build_model("DrugLAMP2C2P", cfg, generator=torch.Generator().manual_seed(SEED))
+    with remat_env(mode):
+        step = make_train_step(model, True, True, calibrate=True, grad_mode=grad_mode,
+                               device=DEVICE)
+    return (model, TrainState.create(model, True, True, flat_opt=False), step,
+            torch.Generator(device=DEVICE).manual_seed(gen_seed))
+
+
+def remat_f32_checks(torch):
+    """(a): the f32 full-gate step (dropout as configured, packed GCN) in both
+    grad modes, dots and full against none, bit for bit; the remat steps
+    under TF32 settings of the caller's (the step's own numerics cover the
+    recompute)."""
+    import dataclasses
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.train.steps import GRAD_MODES
+
+    base = Config()
+    cfg32 = dataclasses.replace(base, solver=dataclasses.replace(base.solver,
+                                                                 compute_dtype="float32"))
+    batch = full_gate_batch(torch, cfg32)
+    for grad_mode in GRAD_MODES:
+        runs = {}
+        for mode in REMAT_MODES:
+            model, state, step, gen = remat_step(torch, cfg32, mode, batch, SEED + 21, grad_mode)
+            with tf32_flags(torch, mode != "none", "high" if mode != "none" else "highest"):
+                out = step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, 1e-3)
+            torch.cuda.synchronize()
+            runs[mode] = remat_step_outputs(torch, model, state, out, gen)
+            del model, state, step, out
+        differ = {m: remat_differ(runs["none"], runs[m]) for m in ("dots", "full")}
+        print(f"  a: f32 full-gate step, {grad_mode}: losses {[float(x) for x in runs['none'][0][:3]]}"
+              f"; against none, the parts that differ: dots {len(differ['dots'])}, full "
+              f"{len(differ['full'])} (of {len(runs['none'][1]) + len(runs['none'][2]) + 6}: "
+              f"outputs, state, moments, generator)", flush=True)
+        if any(differ.values()):
+            fail(f"phase 18 a: remat's f32 step ({grad_mode}) is not none's: {differ}")
+
+
+def remat_bf16_checks(torch, attention, gcn):
+    """(b): the bf16 full-gate step at batch TRAIN_B under each mode from one
+    seed and one set of weights: bit-identical to none; each kernel's
+    launches against REMAT_PER_STEP; the second step's memory
+    (``step_memory``) and the step by CUDA events → (the launches of the
+    counted dots and full steps, {mode: peak bytes})."""
+    from druglamp_tpu_torch.config import Config
+
+    cfg = Config()
+    batch = full_gate_batch(torch, cfg)
+    runs, main, peaks, mems = {}, {}, {}, {}
+    for mode in REMAT_MODES:
+        gc.collect()
+        model, state, step, gen = remat_step(torch, cfg, mode, batch, SEED + 22)
+        reset_counts(attention, gcn)
+        out = step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, 1e-3)
+        torch.cuda.synchronize()
+        launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+        runs[mode] = remat_step_outputs(torch, model, state, out, gen)
+        want = FULL_GATE_PER_STEP if mode == "none" else REMAT_PER_STEP
+        if mode != "none":
+            for k, v in launches.items():
+                main[k] = main.get(k, 0) + v
+        w = out.cm_weight
+        run = lambda: step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w)   # noqa: E731
+        mems[mode] = mem = step_memory(torch, run)
+        peaks[mode] = mem["peak"]
+        ms = time_ms(torch, run, iters=REMAT_TIMED_STEPS, reps=3, warmup=1)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        print(f"  b: bf16 full-gate step, batch {TRAIN_B}, {mode}: launches {launches}; "
+              f"{ms:.2f} ms (CUDA events, median of 3 x {REMAT_TIMED_STEPS}); memory base "
+              f"{mem['base'] / 2 ** 30:.3f} GiB, at the first gradient "
+              f"{mem['at_grad'] / 2 ** 30:.3f} GiB, peak {mem['peak'] / 2 ** 30:.3f} GiB in "
+              f"{mem['peak_in']} (replayed {mem['replayed_peak'] / 2 ** 30:.3f}; the step's own "
+              f"{(mem['peak'] - mem['base']) / 2 ** 30:.3f}); after {REMAT_TIMED_STEPS * 3 + 1} "
+              f"more steps {after / 2 ** 30:.3f} GiB", flush=True)
+        if after > mem["base"] + 2 ** 20:
+            fail(f"phase 18 b: {mode} steps leave memory behind: {mem['base']} B before, "
+                 f"{after} B after")
+        for key in ("at_grad_holders", "peak_holders", "peak_sites"):
+            print(f"     {key}: " + "; ".join(f"{name} {b / 2 ** 20:.1f} MiB"
+                                             for b, name in mem[key][:6]), flush=True)
+        if launches != want:
+            fail(f"phase 18 b: {mode} launches {launches}, expected {want} a step")
+        del model, state, step, out, run
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "remat_memory.txt"), "w") as f:
+        for mode, mem in mems.items():
+            write_holders(f, f"bf16 full-gate step, batch {TRAIN_B}, DRUGLAMP_REMAT={mode}", mem)
+    differ = {m: remat_differ(runs["none"], runs[m]) for m in ("dots", "full")}
+    print(f"  b: against none, the parts that differ: dots {len(differ['dots'])}, full "
+          f"{len(differ['full'])}; peak dots / full / none {peaks['dots'] / 2 ** 30:.3f} / "
+          f"{peaks['full'] / 2 ** 30:.3f} / {peaks['none'] / 2 ** 30:.3f} GiB", flush=True)
+    if any(differ.values()):
+        fail(f"phase 18 b: remat's bf16 step is not none's: {differ}")
+    if peaks["dots"] >= peaks["none"] or peaks["full"] >= peaks["none"]:
+        fail(f"phase 18 b: remat does not peak below none: {peaks}")
+    return main
+
+
+def remat_epoch_checks(torch, train, data, emb):
+    """(c): a REMAT_EPOCH_STEPS-step gather epoch of DrugLAMP2C2P (ssl, cm,
+    calibrate; bf16, packed GCN) on phase 9's dataset under full against
+    none: losses, the CM weight, parameters and buffers bit-identical."""
+    import numpy as np
+
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.data.device_data import train_index_plan
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.train.steps import make_epoch_step_gather
+
+    tree = data.tree_for(train)
+    idx = train_index_plan(np.random.RandomState(SEED + 23).permutation(len(train)),
+                           TRAIN_B)[:REMAT_EPOCH_STEPS]
+    ones = np.ones(idx.shape, np.float32)
+    runs = {}
+    for mode in ("none", "full"):
+        model = build_model("DrugLAMP2C2P", Config(),
+                            generator=torch.Generator().manual_seed(SEED))
+        state = TrainState.create(model, True, True, flat_opt=False)
+        with remat_env(mode):
+            epoch = make_epoch_step_gather(model, True, True, True, True, calibrate=True,
+                                           device=DEVICE)
+        out = epoch(state, idx, ones, tree, emb, torch.Generator(device=DEVICE).manual_seed(SEED),
+                    TRAIN_LR, SSL_LR, CM_LR, MARGIN, 1e-3)
+        torch.cuda.synchronize()
+        runs[mode] = ([out.cls_losses.clone(), out.ssl_losses.clone(), out.cm_losses.clone(),
+                       out.cm_weight.clone()],
+                      {k: v.detach().clone() for k, v in model.state_dict().items()})
+        del model, state, epoch, out
+    (la, sa), (lb, sb) = runs["none"], runs["full"]
+    differ = [f"loss {i}" for i, (x, y) in enumerate(zip(la, lb)) if not torch.equal(x, y)]
+    differ += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    print(f"  c: {REMAT_EPOCH_STEPS}-step gather epoch (bf16, ssl + cm + calibrate) under full "
+          f"against none: cls losses {la[0].float().cpu().numpy().round(5).tolist()}, "
+          f"{len(differ)} parts differ", flush=True)
+    if differ:
+        fail(f"phase 18 c: remat's gather epoch is not none's: {differ[:5]}")
+
+
+def remat_big_batch(torch):
+    """(d): the peak of the bf16 full-gate step at batch REMAT_BIG_B under
+    none and full (the second step after a reset; printed, not gated)."""
+    from druglamp_tpu_torch.config import Config
+
+    batch = full_gate_batch(torch, Config(), REMAT_BIG_B)
+    peaks = {}
+    for mode in ("none", "full"):
+        model, state, step, gen = remat_step(torch, Config(), mode, batch, SEED + 24)
+        out = step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, 1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, out.cm_weight)
+        torch.cuda.synchronize()
+        peaks[mode] = (base, torch.cuda.max_memory_allocated())
+        del model, state, step, out
+    print(f"  d: bf16 full-gate step, batch {REMAT_BIG_B}: peak none "
+          f"{peaks['none'][1] / 2 ** 30:.3f} GiB, full {peaks['full'][1] / 2 ** 30:.3f} GiB "
+          f"(base {peaks['none'][0] / 2 ** 30:.3f} / {peaks['full'][0] / 2 ** 30:.3f} GiB)",
+          flush=True)
+
+
+def remat_checks(torch, attention, gcn, smi, train, data, emb):
+    """Phase 18 → the launches of its main path ((b)'s dots and full steps)."""
+    print(f"  card: {smi}", flush=True)
+    os.environ["DRUGLAMP_PACKED_GCN"] = "1"
+    t0 = time.perf_counter()
+    remat_f32_checks(torch)
+    print(f"  (a took {time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    launches = remat_bf16_checks(torch, attention, gcn)
+    print(f"  (b took {time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    remat_epoch_checks(torch, train, data, emb)
+    remat_big_batch(torch)
+    print(f"  (c, d took {time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
 @contextlib.contextmanager
 def profiling(torch, cpu: bool = False):
     """A profiler window (the card's activity, and the host's with ``cpu``)
@@ -4347,10 +4736,13 @@ def main() -> None:
           "batches")
     sw_launches = switch_checks(torch, attention, gcn, smi, train, val, test, data, emb,
                                 records[0])
+
+    phase("18 DRUGLAMP_REMAT (block-wise rematerialisation of the train step)")
+    remat_launches = remat_checks(torch, attention, gcn, smi, train, data, emb)
     del train, val, test, data, emb
     later = (gate_launches, fit_launches, cli_launches, enc_launches, dp_launches, tp_launches,
-             lin_launches, fdr_launches, sw_launches)
-    for rec in records:        # the launches of the main path, phases 10 to 16 included
+             lin_launches, fdr_launches, sw_launches, remat_launches)
+    for rec in records:        # the launches of the main path, phases 10 to 18 included
         keys = ([rec["name"]] if rec["name"] != "gcn_packed_matmul"
                 else ["gcn_packed_matmul", "gcn_packed_matmul_bwd"])
         rec["launches"] += sum(run.get(k, 0) for run in later for k in keys)

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +114,23 @@ def _global_moments(xf: torch.Tensor, ctx: dp.MeshContext):
     return g_mean.float(), g_var.float()
 
 
+_STATS_FROZEN = False
+
+
+@contextlib.contextmanager
+def frozen_running_stats() -> Iterator[None]:
+    """Inside the block, train-mode BatchNorm normalizes by its batch
+    statistics as always but leaves its running statistics as they are: a
+    forward that remat runs again in the backward (``train/remat.py``) must
+    not update them a second time."""
+    global _STATS_FROZEN
+    prev, _STATS_FROZEN = _STATS_FROZEN, True
+    try:
+        yield
+    finally:
+        _STATS_FROZEN = prev
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm over every axis but the last, in f32 (flax ``nn.BatchNorm`` as
     ``druglamp_tpu/nn/layers.py::TorchBatchNorm`` configures it).
@@ -145,6 +163,8 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if _STATS_FROZEN:
+            return
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
@@ -231,10 +251,11 @@ class MaskedBatchNorm(nn.Module):
             mean = (xa * m).sum(1) / n                              # (g, C)
             var = (((xa - mean[:, None]) ** 2) * m).sum(1) / n
             n, mean, var = n.float(), mean.float(), var.float()
-            with torch.no_grad():
-                unbiased = var[0] * n[0] / torch.clamp(n[0] - 1.0, min=1.0)
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean[0])
-                self.running_var.copy_(0.9 * self.running_var + 0.1 * unbiased)
+            if not _STATS_FROZEN:
+                with torch.no_grad():
+                    unbiased = var[0] * n[0] / torch.clamp(n[0] - 1.0, min=1.0)
+                    self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean[0])
+                    self.running_var.copy_(0.9 * self.running_var + 0.1 * unbiased)
             y = ((xg - mean[:, None]) * torch.rsqrt(var[:, None] + self.eps)).reshape(xf.shape)
         else:
             y = (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)

@@ -54,15 +54,13 @@ weight is carried from step to step as a device scalar): nothing inside the
 loop (the profiler range ``epoch_step.loop``) reads a value back or waits
 for the device, the calibrating epoch included.
 
-The flat optimizer is ``train/state.py::FlatAdamW``.  Not ported: remat
-(``DRUGLAMP_REMAT``): the step takes three gradients of one retained graph,
-and a checkpointed region is rebuilt whole by the first gradient that
-reaches it and held, in part, until the graph is freed, so remat over the
-JAX package's region (the whole forward and its losses) cannot keep less
-than the eager step keeps.  Nor ``make_repeat_step``, and the drivers over
-host-stacked batches (``make_epoch_step``, ``make_eval_scan``): they exist
-for ``lax.scan``, and in eager PyTorch a stacked chunk is only a loop of the
-same steps after an extra host copy.
+The flat optimizer is ``train/state.py::FlatAdamW``.  ``DRUGLAMP_REMAT``
+(``none`` | ``dots`` | ``full``), read when a step body is built, checkpoints
+the step's forward region by region (``train/remat.py``); every mode gives
+the same step bit for bit.  Not ported: ``make_repeat_step``, and the
+loops over host-stacked batches (``make_epoch_step``, ``make_eval_scan``):
+they exist for ``lax.scan``, and in eager PyTorch a stacked chunk is only a
+loop of the same steps after an extra host copy.
 """
 
 from __future__ import annotations
@@ -80,6 +78,7 @@ from druglamp_tpu_torch.data.encoding import decode_batch
 from druglamp_tpu_torch.losses.classification import binary_cross_entropy, cross_entropy_logits
 from druglamp_tpu_torch.parallel.mesh import MeshContext, current, replicas
 from druglamp_tpu_torch.serve import resolve_device
+from druglamp_tpu_torch.train import remat
 from druglamp_tpu_torch.train.state import TrainState, apply_optimizer
 from druglamp_tpu_torch.utils.numerics import train_numerics
 
@@ -171,7 +170,7 @@ def _replicas(mesh: Optional[MeshContext]) -> Optional[MeshContext]:
 def loss_gradients(model: nn.Module, batch: Dict[str, Any], generator: Optional[torch.Generator],
                    use_ssl: bool, use_cm: bool, calibrate: bool, margin: float,
                    cm_weight: torch.Tensor, n_class: int = 1,
-                   mesh: Optional[MeshContext] = None):
+                   mesh: Optional[MeshContext] = None, remat_mode: str = "none"):
     """The first half of a train step on a decoded batch: one train-mode
     forward, the active losses in the order cls, ssl, cm, and one gradient
     per active loss at the current parameters → (cls_loss, ssl_loss, cm_loss
@@ -188,22 +187,27 @@ def loss_gradients(model: nn.Module, batch: Dict[str, Any], generator: Optional[
     that their mean over the ranks is the global batch's, and the values
     returned are the global ones: the losses averaged over the ranks (the
     calibration sees those), the probabilities gathered in rank order, the
-    gradient lists averaged (``MeshContext.all_reduce_grads``)."""
+    gradient lists averaged (``MeshContext.all_reduce_grads``).
+
+    ``remat_mode`` ``dots`` or ``full`` checkpoints the forward region by
+    region (``train/remat.py``); the values returned are the same."""
     ctx = _replicas(mesh) if mesh is not None else current()
     params = list(model.parameters())
+    regions = remat.Regions(model, remat_mode)
     with replicas(ctx):
-        out = model(batch, generator=generator)
-        probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
-        zero = torch.zeros((), device=cls_loss.device)
-        active = [("cls", cls_loss)]
-        ssl_loss = cm_raw = zero
-        if use_ssl:
-            ssl = model.ssl_loss(out["ssl_inputs"], generator)
-            ssl_loss = (ssl["prot_ssl"] + ssl["drug_ssl"]) * 0.1
-            active.append(("ssl", ssl_loss))
-        if use_cm:
-            cm_raw = model.cm_loss(out["cm_inputs"], batch["cm"], margin)
-            active.append(("cm", cm_raw))
+        with regions.forward():
+            out = model(batch, generator=generator)
+            probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
+            zero = torch.zeros((), device=cls_loss.device)
+            active = [("cls", cls_loss)]
+            ssl_loss = cm_raw = zero
+            if use_ssl:
+                ssl = model.ssl_loss(out["ssl_inputs"], generator)
+                ssl_loss = (ssl["prot_ssl"] + ssl["drug_ssl"]) * 0.1
+                active.append(("ssl", ssl_loss))
+            if use_cm:
+                cm_raw = model.cm_loss(out["cm_inputs"], batch["cm"], margin)
+                active.append(("cm", cm_raw))
         values = [cls_loss.detach(), ssl_loss.detach(), cm_raw.detach()]
         if ctx is not None:
             values = list((ctx.all_reduce_sum(torch.stack(values)) / ctx.n_data).unbind())
@@ -211,9 +215,14 @@ def loss_gradients(model: nn.Module, batch: Dict[str, Any], generator: Optional[
         cls_v, ssl_v, cm_v = values
         w = _calibrate(cm_v, cls_v, cm_weight) if calibrate else cm_weight
         grads = {}
-        for i, (name, loss) in enumerate(active):
-            grads[name] = torch.autograd.grad(loss, params, retain_graph=i + 1 < len(active),
-                                              allow_unused=True, materialize_grads=True)
+        try:
+            for i, (name, loss) in enumerate(active):
+                regions.before_gradient()
+                grads[name] = torch.autograd.grad(loss, params,
+                                                  retain_graph=i + 1 < len(active),
+                                                  allow_unused=True, materialize_grads=True)
+        finally:
+            regions.release()
     if ctx is not None:
         grads = ctx.all_reduce_grads(grads)
     if use_cm:
@@ -231,7 +240,9 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
     a float or a device scalar, returned as a device scalar.  Over the ranks
     of ``mesh`` the batch is this rank's rows (``loss_gradients``); with
     per-replica statistics (``model.bn_groups > 1``) rank 0's BatchNorm
-    running stats, those of block 0, go to every rank after the step."""
+    running stats, those of block 0, go to every rank after the step.
+    ``DRUGLAMP_REMAT`` is read now (``train/remat.py::mode``)."""
+    remat_mode = remat.mode()
     if grad_mode not in GRAD_MODES:
         raise ValueError(f"grad_mode {grad_mode!r}: expected one of {GRAD_MODES}")
     if use_cm and not model.with_cm_inputs:
@@ -251,7 +262,7 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
         with train_numerics(), replicas(ctx):
             cls_loss, ssl_loss, cm_loss, probs, w, grads = loss_gradients(
                 model, batch, generator, use_ssl, use_cm, calibrate,
-                float(np.float32(margin)), cm_weight, n_class)
+                float(np.float32(margin)), cm_weight, n_class, remat_mode=remat_mode)
             if grad_mode == "legacy_aliased":
                 last = grads["cm" if use_cm else "ssl" if use_ssl else "cls"]
                 grads = dict.fromkeys(grads, last)

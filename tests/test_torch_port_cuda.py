@@ -869,3 +869,40 @@ def test_flat_adamw_on_the_card_matches_the_per_leaf_adamw(cuda):
     assert flat.m.is_cuda and int(flat.count) == 20
     for (name, p), q in zip(model.named_parameters(), shadow):
         torch.testing.assert_close(q, p, rtol=1e-5, atol=1e-7, msg=name)
+
+
+@pytest.mark.parametrize("mode", ["dots", "full"])
+def test_remat_step_is_eager_and_peaks_lower(cuda, monkeypatch, mode):
+    """The bf16 full-gate step (packed GCN) under ``DRUGLAMP_REMAT=mode``
+    against ``none`` from one seed and one set of weights: losses, parameters
+    and BatchNorm buffers bit-identical, the forward kernels launched again
+    in the recomputes (8/4 attention forwards, 12 GCN forwards; the
+    backwards as eager), and the second step's peak
+    (``torch.cuda.max_memory_allocated`` after a reset) below none's."""
+    from druglamp_tpu_torch.kernels import gcn
+
+    monkeypatch.setenv("DRUGLAMP_PACKED_GCN", "1")
+    runs = {}
+    for m in ("none", mode):
+        monkeypatch.setenv("DRUGLAMP_REMAT", m)
+        model, state, step, batch = _full_gate(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        attention.reset_launch_counts()
+        gcn.reset_launch_counts()
+        out = step(state, batch, gen, 1e-4, 3e-5, 3e-5, 0.5, 1e-3)
+        torch.cuda.synchronize()
+        launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+        torch.cuda.reset_peak_memory_stats()
+        out = step(state, batch, gen, 1e-4, 3e-5, 3e-5, 0.5, out.cm_weight)
+        torch.cuda.synchronize()
+        runs[m] = ([x.clone() for x in (out.cls_loss, out.ssl_loss, out.cm_loss, out.probs)],
+                   {k: v.clone() for k, v in model.state_dict().items()}, launches,
+                   torch.cuda.max_memory_allocated())
+        del model, state, step, batch, out
+    (la, sa, _, peak), (lb, sb, launches, remat_peak) = runs["none"], runs[mode]
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert [k for k in sa if not torch.equal(sa[k], sb[k])] == []
+    assert launches == {"paired_attention_fwd": 8, "self_attention_fwd": 4,
+                        "paired_attention_bwd": 4, "self_attention_bwd": 2,
+                        "gcn_packed_matmul": 12, "gcn_packed_matmul_bwd": 9}
+    assert remat_peak < peak, (remat_peak, peak)

@@ -21,8 +21,8 @@ PORT_FILES = sorted((ROOT / "druglamp_tpu_torch").rglob("*.py")) + [ROOT / "chip
 # The modules of the device-resident epoch and the packed GCN kernel, of the
 # SSL/CM gates and the Trainer, of the host pipeline and the training CLI, of
 # the frozen encoders, of data-parallel training, of the model axis and the
-# last leftover modules, and of the training switches, the native packer and
-# the profiling tools (the glob above must reach them).
+# last leftover modules, of the training switches, the native packer and the
+# profiling tools, and of remat (the glob above must reach them).
 SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py",
                  "data/dataset.py", "data/cache.py", "eval/metrics.py", "train/steps.py",
                  "nn/layers.py", "losses/masking.py", "losses/schedules.py", "models/ssl.py",
@@ -35,7 +35,8 @@ SLICE_MODULES = ("kernels/gcn.py", "data/device_data.py", "data/device_store.py"
                  "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
                  "encoders/sharding.py", "nn/pmma.py", "nn/mlp.py", "models/registry.py",
                  "losses/focal.py", "nn/norms.py", "data/partition.py", "data/inspect.py",
-                 "chem/protein_features.py", "chem/native.py", "utils/profiling.py")
+                 "chem/protein_features.py", "chem/native.py", "utils/profiling.py",
+                 "train/remat.py")
 LAZY = ("transformers", "safetensors")     # imported only where used, never at import
 
 

@@ -245,10 +245,11 @@ def _recording(loss_gradients, steps):
     gradients (flax paths; the CM gradient times the weight)."""
 
     def recorded(model, batch, generator, use_ssl, use_cm, calibrate, margin, cm_weight,
-                 n_class=1):
+                 n_class=1, **kw):
         start = {k: v.copy() for k, v in to_jax_paths(model.state_dict(), model).items()}
         cls, ssl, cm, probs, w, grads = loss_gradients(model, batch, generator, use_ssl, use_cm,
-                                                       calibrate, margin, cm_weight, n_class)
+                                                       calibrate, margin, cm_weight, n_class,
+                                                       **kw)
         names = [n for n, _ in model.named_parameters()]
         steps.append({"start": start, "batch": _numpy_tree(batch),
                       "w_in": np.float32(cm_weight), "w": np.float32(w),

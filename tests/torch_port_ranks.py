@@ -1,7 +1,8 @@
 """The rank processes of tests/test_torch_port_parallel.py,
-tests/test_torch_port_tensor_parallel.py, tests/test_torch_port_flat_opt.py and
-tests/test_torch_port_checkpoint_chunks.py: each job runs in every rank of a
-gloo process group on the CPU, started as torchrun starts them
+tests/test_torch_port_tensor_parallel.py, tests/test_torch_port_flat_opt.py,
+tests/test_torch_port_checkpoint_chunks.py and tests/test_torch_port_remat.py:
+each job runs in every rank of a gloo process group on the CPU, started as
+torchrun starts them
 (``run_ranks``), and reads its inputs from and writes its results to a
 directory the test gives it:
 
@@ -630,7 +631,85 @@ def job_ckpt(d: str) -> None:
         pickle.dump(out, f)
 
 
+def job_remat(d: str) -> None:
+    """One full-gate step (ssl, cm, calibrate) of a seeded tiny DrugLAMP2C2P,
+    dropout 0.1 and the MLM mask drawn from the step's generator, under
+    ``DRUGLAMP_REMAT=none`` and ``=full``: over the two ranks as data ranks
+    (this rank's rows of a batch of 8, global BatchNorm; key "data") and as
+    one model axis (the whole batch, the model sharded by
+    ``MeshContext.shard_params``; key "model") → rank{r}_remat.pkl: {key:
+    {"differ": the parts of the full step (outputs, this rank's parameters
+    and buffers, AdamW moments, the generator's state) that are not none's,
+    "losses": none's, "recomputed": the checkpoint frames the full step
+    made}}."""
+    import numpy as np
+    import torch
+    import torch.utils.checkpoint as torch_checkpoint
+
+    from druglamp_tpu_torch.data.encoding import compact_batch
+    from druglamp_tpu_torch.data.loader import build_cm_arrays
+    from druglamp_tpu_torch.losses import masking
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.parallel.mesh import MeshContext, make_mesh
+    from druglamp_tpu_torch.train import steps
+    from druglamp_tpu_torch.train.state import TrainState
+    from druglamp_tpu_torch.utils.synthetic import make_batch, tiny_config
+
+    drawn = masking.mlm_mask
+    mesh, rank = _setup()
+    masking.mlm_mask = drawn
+    frames = []
+    init = torch_checkpoint._CheckpointFrame.__init__
+
+    def record(frame, *a, **k):
+        init(frame, *a, **k)
+        frames.append(1)
+
+    torch_checkpoint._CheckpointFrame.__init__ = record
+    cfg = tiny_config(n_hidden=16, max_nodes=32, site_seq=16, pmma_dropout=0.1)
+    host = make_batch(cfg, 8, seed=3, n_drug_feature=24, n_prot_feature=40)
+    batch = compact_batch(host, (host["d_fill"] == 0).sum(1))
+    t = np.arange(8)
+    pid, did = t % 3, t % 4
+    batch["labels"] = ((t % 2 == 0) & (pid != 2)).astype(np.float32)
+    batch["cm"] = build_cm_arrays(pid, did, batch["labels"])
+    axis = MeshContext(make_mesh(2))          # the same two ranks as a model axis
+    out = {}
+    for key, rows, step_mesh, shard_mesh in (
+            ("data", mesh.shard_batch(_tensors(batch), whole=("cm",)), mesh, None),
+            ("model", _tensors(batch), None, axis)):
+        runs = {}
+        for mode in ("none", "full"):
+            os.environ["DRUGLAMP_REMAT"] = mode
+            model = build_model("DrugLAMP2C2P", cfg, 24, 40,
+                                generator=torch.Generator().manual_seed(0))
+            if shard_mesh is not None:
+                shard_mesh.shard_params(model)
+            state = TrainState.create(model, True, True, flat_opt=False)
+            step = steps.make_train_step(model, True, True, calibrate=True, device="cpu",
+                                         mesh=step_mesh)
+            gen = torch.Generator().manual_seed(5)
+            o = step(state, rows, gen, 1e-3, 1e-3, 1e-3, 0.5, 1e-3)
+            parts = {f"output {k}": getattr(o, k) for k in ("cls_loss", "ssl_loss", "cm_loss",
+                                                             "probs", "cm_weight")}
+            parts.update(model.state_dict())
+            parts.update({f"{n} {opt_name} {k}": v
+                          for opt_name in ("opt_cls", "opt_ssl", "opt_cm")
+                          for n, p in model.named_parameters()
+                          for k, v in getattr(state, opt_name).state[p].items()})
+            parts["generator"] = gen.get_state()
+            runs[mode] = (parts, len(frames))
+            frames.clear()
+        (a, _), (b, n_frames) = runs["none"], runs["full"]
+        out[key] = {"differ": [k for k in a if not torch.equal(a[k], b[k])],
+                    "losses": [float(a[f"output {k}"]) for k in ("cls_loss", "ssl_loss",
+                                                                 "cm_loss")],
+                    "recomputed": n_frames}
+    with open(os.path.join(d, f"rank{rank}_remat.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 if __name__ == "__main__":
     for job in sys.argv[1].split(","):
         {"step": job_step, "fit": job_fit, "tp": job_tp, "tp4": job_tp4, "flat_tp": job_flat_tp,
-         "ckpt": job_ckpt}[job](sys.argv[2])
+         "ckpt": job_ckpt, "remat": job_remat}[job](sys.argv[2])
