@@ -54,6 +54,15 @@ weight is carried from step to step as a device scalar): nothing inside the
 loop (the profiler range ``epoch_step.loop``) reads a value back or waits
 for the device, the calibrating epoch included.
 
+While a profiler records, the steps mark their phases as ranges
+(``utils.profiling.span``), one after another on the calling thread:
+``druglamp.gather`` (a batch onto the device in its decoded form; the plan's
+copy and the pre-gather once a chunk), ``druglamp.forward`` (the forward and
+the losses, reduced over the ranks), ``druglamp.backward.<loss>`` (each
+gradient, remat's recompute inside it; the CM gradient's scaling by the
+weight, and over the ranks the gradients' all-reduce, in the last) and
+``druglamp.optimizer.<loss>`` (each AdamW).  ``_calibrate`` lies in none.
+
 The flat optimizer is ``train/state.py::FlatAdamW``.  ``DRUGLAMP_REMAT``
 (``none`` | ``dots`` | ``full``), read when a step body is built, checkpoints
 the step's forward region by region (``train/remat.py``); every mode gives
@@ -81,8 +90,13 @@ from druglamp_tpu_torch.serve import resolve_device
 from druglamp_tpu_torch.train import remat
 from druglamp_tpu_torch.train.state import TrainState, apply_optimizer
 from druglamp_tpu_torch.utils.numerics import train_numerics
+from druglamp_tpu_torch.utils.profiling import span
 
 GRAD_MODES = ("per_loss", "legacy_aliased")
+# The step's phases, as profiler ranges (``utils.profiling.span``)
+GATHER, FORWARD = "druglamp.gather", "druglamp.forward"
+BACKWARD = {k: f"druglamp.backward.{k}" for k in ("cls", "ssl", "cm")}
+OPTIMIZER = {k: f"druglamp.optimizer.{k}" for k in ("cls", "ssl", "cm")}
 
 
 class StepOutput(NamedTuple):
@@ -195,39 +209,48 @@ def loss_gradients(model: nn.Module, batch: Dict[str, Any], generator: Optional[
     params = list(model.parameters())
     regions = remat.Regions(model, remat_mode)
     with replicas(ctx):
-        with regions.forward():
-            out = model(batch, generator=generator)
-            probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
-            zero = torch.zeros((), device=cls_loss.device)
-            active = [("cls", cls_loss)]
-            ssl_loss = cm_raw = zero
-            if use_ssl:
-                ssl = model.ssl_loss(out["ssl_inputs"], generator)
-                ssl_loss = (ssl["prot_ssl"] + ssl["drug_ssl"]) * 0.1
-                active.append(("ssl", ssl_loss))
-            if use_cm:
-                cm_raw = model.cm_loss(out["cm_inputs"], batch["cm"], margin)
-                active.append(("cm", cm_raw))
-        values = [cls_loss.detach(), ssl_loss.detach(), cm_raw.detach()]
-        if ctx is not None:
-            values = list((ctx.all_reduce_sum(torch.stack(values)) / ctx.n_data).unbind())
-            probs = ctx.gather_rows(probs.detach())
+        with span(FORWARD):
+            with regions.forward():
+                out = model(batch, generator=generator)
+                probs, cls_loss = _cls_loss(out["score"], batch["labels"], n_class)
+                zero = torch.zeros((), device=cls_loss.device)
+                active = [("cls", cls_loss)]
+                ssl_loss = cm_raw = zero
+                if use_ssl:
+                    ssl = model.ssl_loss(out["ssl_inputs"], generator)
+                    ssl_loss = (ssl["prot_ssl"] + ssl["drug_ssl"]) * 0.1
+                    active.append(("ssl", ssl_loss))
+                if use_cm:
+                    cm_raw = model.cm_loss(out["cm_inputs"], batch["cm"], margin)
+                    active.append(("cm", cm_raw))
+            values = [cls_loss.detach(), ssl_loss.detach(), cm_raw.detach()]
+            if ctx is not None:
+                values = list((ctx.all_reduce_sum(torch.stack(values)) / ctx.n_data).unbind())
+                probs = ctx.gather_rows(probs.detach())
+            probs = probs.detach()
         cls_v, ssl_v, cm_v = values
         w = _calibrate(cm_v, cls_v, cm_weight) if calibrate else cm_weight
         grads = {}
         try:
             for i, (name, loss) in enumerate(active):
-                regions.before_gradient()
-                grads[name] = torch.autograd.grad(loss, params,
-                                                  retain_graph=i + 1 < len(active),
-                                                  allow_unused=True, materialize_grads=True)
+                with span(BACKWARD[name]):
+                    regions.before_gradient()
+                    grads[name] = torch.autograd.grad(loss, params,
+                                                      retain_graph=i + 1 < len(active),
+                                                      allow_unused=True, materialize_grads=True)
+                    if i + 1 < len(active):
+                        continue
+                    # after the last gradient, its saved outputs dropped: the ranks' mean
+                    # of each gradient, then the CM weight, inside the last gradient's range
+                    regions.release()
+                    if ctx is not None:
+                        grads = ctx.all_reduce_grads(grads)
+                    if use_cm:
+                        grads["cm"] = [g * w for g in grads["cm"]]
+                    cm_v = cm_v * w
         finally:
             regions.release()
-    if ctx is not None:
-        grads = ctx.all_reduce_grads(grads)
-    if use_cm:
-        grads["cm"] = [g * w for g in grads["cm"]]
-    return cls_v, ssl_v, cm_v * w, probs.detach(), w, grads
+    return cls_v, ssl_v, cm_v, probs, w, grads
 
 
 def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bool,
@@ -254,7 +277,8 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
                   lr_cls: float, lr_ssl: float = 0.0, lr_cm: float = 0.0, margin: float = 0.5,
                   cm_weight=1.0) -> StepOutput:
         batch = dict(batch)
-        batch = decode_batch(batch, batch.pop("_store", None))
+        with span(GATHER):
+            batch = decode_batch(batch, batch.pop("_store", None))
         dev = batch["labels"].device
         if not isinstance(cm_weight, torch.Tensor):
             cm_weight = torch.full((), float(cm_weight), device=dev)
@@ -269,9 +293,10 @@ def _make_step_body(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
             for name, opt, lr in (("cls", state.opt_cls, lr_cls), ("ssl", state.opt_ssl, lr_ssl),
                                   ("cm", state.opt_cm, lr_cm)):
                 if name in grads:
-                    for p, g in zip(model.parameters(), grads[name]):
-                        p.grad = g
-                    apply_optimizer(opt, lr)
+                    with span(OPTIMIZER[name]):
+                        for p, g in zip(model.parameters(), grads[name]):
+                            p.grad = g
+                        apply_optimizer(opt, lr)
         if ctx is not None and model.bn_groups > 1:
             ctx.broadcast_buffers(model)
         state.step += 1
@@ -301,8 +326,9 @@ def make_train_step(model: nn.Module, use_ssl: bool, use_cm: bool, calibrate: bo
     def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator],
              lr_cls: float, lr_ssl: float = 0.0, lr_cm: float = 0.0, margin: float = 0.5,
              cm_weight=1.0) -> StepOutput:
-        return body(state, to_device(batch, dev), generator, lr_cls, lr_ssl, lr_cm, margin,
-                    cm_weight)
+        with span(GATHER):
+            batch = to_device(batch, dev)
+        return body(state, batch, generator, lr_cls, lr_ssl, lr_cm, margin, cm_weight)
 
     return step
 
@@ -343,27 +369,30 @@ def _plan_batches(idx, valid, data_tree, emb_store, include_llm: bool, emb_ordin
     it over the ranks of ``mesh`` (with ``global_cm`` each batch's CM ground
     truth is the whole step's).  The plan's copy to the device and the
     chunk's pre-gather run now; the returned iterator gathers each step's
-    batch on the device when it is reached."""
-    plan = to_device({"idx": idx, "valid": valid}, device)
-    full = plan["idx"]
-    cols = mesh.rows(full.shape[1]) if mesh is not None else slice(None)
-    idx, valid = full[:, cols], plan["valid"][:, cols]
-    pref = _pregather_embeddings(data_tree, emb_store, idx, include_llm and emb_ordinals)
+    batch on the device when it is reached (each gather a ``druglamp.gather``
+    range, closed before the batch is handed on)."""
+    with span(GATHER):
+        plan = to_device({"idx": idx, "valid": valid}, device)
+        full = plan["idx"]
+        cols = mesh.rows(full.shape[1]) if mesh is not None else slice(None)
+        idx, valid = full[:, cols], plan["valid"][:, cols]
+        pref = _pregather_embeddings(data_tree, emb_store, idx, include_llm and emb_ordinals)
 
     def batches():
         for s in range(idx.shape[0]):
-            batch = gather_compact_batch(data_tree, idx[s], valid[s], include_llm, emb_ordinals,
-                                         emb_store, with_cm=not global_cm)
-            if global_cm:
-                ids = full[s]
-                batch["cm"] = cm_arrays_device(data_tree["pair_prot"].index_select(0, ids),
-                                               data_tree["pair_drug"].index_select(0, ids),
-                                               data_tree["pair_label"].index_select(0, ids))
-            if pref is not None:
-                del batch["drug_ord"], batch["prot_ord"]
-                batch.update({k: v[s] for k, v in pref.items()})  # xd/d_ntok/xp_src/xp_len
-            elif emb_store is not None:
-                batch["_store"] = emb_store
+            with span(GATHER):
+                batch = gather_compact_batch(data_tree, idx[s], valid[s], include_llm,
+                                             emb_ordinals, emb_store, with_cm=not global_cm)
+                if global_cm:
+                    ids = full[s]
+                    batch["cm"] = cm_arrays_device(data_tree["pair_prot"].index_select(0, ids),
+                                                   data_tree["pair_drug"].index_select(0, ids),
+                                                   data_tree["pair_label"].index_select(0, ids))
+                if pref is not None:
+                    del batch["drug_ord"], batch["prot_ord"]
+                    batch.update({k: v[s] for k, v in pref.items()})  # xd/d_ntok/xp_src/xp_len
+                elif emb_store is not None:
+                    batch["_store"] = emb_store
             yield batch
 
     return batches()
@@ -403,7 +432,7 @@ def make_epoch_step_gather(model: nn.Module, use_ssl: bool, use_cm: bool, includ
         w = (cm_weight if isinstance(cm_weight, torch.Tensor)
              else torch.full((), float(cm_weight), device=dev))
         outs = []
-        with torch.profiler.record_function("epoch_step.loop"):
+        with span("epoch_step.loop"):
             for batch in batches:
                 outs.append(body(state, batch, generator, lr_cls, lr_ssl, lr_cm, margin, w))
                 w = outs[-1].cm_weight
@@ -428,21 +457,23 @@ def _eval_body(model: nn.Module, n_class: int,
 
     def eval_step(batch: Dict[str, Any]):
         batch = dict(batch)
-        batch = decode_batch(batch, batch.pop("_store", None))
-        model.eval()
-        out = model(batch)
-        probs, _ = _cls_loss(out["score"], batch["labels"], n_class)
-        valid = batch.get("valid")
-        valid = torch.ones_like(probs) if valid is None else valid.float()
-        logits = out["score"].squeeze(-1).float()
-        labels = batch["labels"].float()
-        per = (torch.clamp(logits, min=0.0) - logits * labels
-               + torch.log1p(torch.exp(-logits.abs())))
-        num, den = (per * valid).sum(), valid.sum()
-        if ctx is not None:
-            num, den = ctx.all_reduce_sum(torch.stack([num, den]))
-            probs = ctx.gather_rows(probs)
-        return probs, num / torch.clamp(den, min=1.0)
+        with span(GATHER):
+            batch = decode_batch(batch, batch.pop("_store", None))
+        with span(FORWARD):
+            model.eval()
+            out = model(batch)
+            probs, _ = _cls_loss(out["score"], batch["labels"], n_class)
+            valid = batch.get("valid")
+            valid = torch.ones_like(probs) if valid is None else valid.float()
+            logits = out["score"].squeeze(-1).float()
+            labels = batch["labels"].float()
+            per = (torch.clamp(logits, min=0.0) - logits * labels
+                   + torch.log1p(torch.exp(-logits.abs())))
+            num, den = (per * valid).sum(), valid.sum()
+            if ctx is not None:
+                num, den = ctx.all_reduce_sum(torch.stack([num, den]))
+                probs = ctx.gather_rows(probs)
+            return probs, num / torch.clamp(den, min=1.0)
 
     return eval_step
 
@@ -457,7 +488,9 @@ def make_eval_step(model: nn.Module, n_class: int = 1, device="cuda",
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, Any]):
-        return body(to_device(batch, dev))
+        with span(GATHER):
+            batch = to_device(batch, dev)
+        return body(batch)
 
     return eval_step
 

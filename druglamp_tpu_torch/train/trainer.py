@@ -98,6 +98,7 @@ from druglamp_tpu_torch.train.steps import (EpochOutput, make_epoch_step_gather,
                                             make_eval_scan_gather, make_eval_step,
                                             make_train_step, to_device, tree_map)
 from druglamp_tpu_torch.utils.logging import ExperimentLogger
+from druglamp_tpu_torch.utils.profiling import span
 
 
 class _DevicePrefetch:
@@ -362,7 +363,7 @@ class Trainer:
                                shard=self._shard if self.mesh is not None else None)
         w = torch.full((), float(self.cm_weight), device=self.device)
         outs = []
-        with torch.profiler.record_function("trainer.host_epoch"):
+        with span("trainer.host_epoch"):
             for _, batch in feed:
                 outs.append(step_fn(state, batch, gen, lr_cls, lr_ssl, lr_cm, margin, w))
                 w = outs[-1].cm_weight
@@ -414,7 +415,7 @@ class Trainer:
         feed = _DevicePrefetch(loader.epoch(0), self.device, self.embed_store,
                                shard=self._shard if self.mesh is not None else None)
         pending = []
-        with torch.profiler.record_function("trainer.host_epoch"):
+        with span("trainer.host_epoch"):
             for host, batch in feed:
                 probs, losses = self._eval_fn(batch)
                 pending.append((probs, losses, host["valid"], host["labels"]))

@@ -2,27 +2,41 @@
 
     with trace("runs/trace"):                 # a Chrome / TensorBoard trace of the block
         out = step(state, batch, gen, lr)
-    timer = StepTimer()
-    timer.start(); out = step(...); timer.stop(out.cls_loss)   # waits for out's device
-    timer.summary()                           # steps, mean_ms, p50_ms, p90_ms, max_ms
+    with span("druglamp.forward"):            # a named range, while a profiler records
+        out = model(batch)
     ms = device_time_ms(fn, x, n1=10, n2=40)  # per call, CUDA events on the card
 
-``trace`` and ``device_time_ms`` run on ``cuda`` unless the caller asks for
-``cpu`` (and raise when ``cuda`` is asked for and absent).  On the card,
-``device_time_ms`` reads CUDA events around back-to-back calls: a call whose
-kernels take less time than the host needs to issue them is timed by the
-host's issue rate, not by its kernels' device time.
+``span`` costs a module attribute read while no profiler records (no
+allocation, no dispatcher call), so the train and eval steps mark their
+phases with it unconditionally.  ``trace`` and ``device_time_ms`` run on
+``cuda`` unless the caller asks for ``cpu`` (and raise when ``cuda`` is
+asked for and absent).  On the card, ``device_time_ms`` reads CUDA events
+around back-to-back calls: a call whose kernels take less time than the
+host needs to issue them is timed by the host's issue rate, not by its
+kernels' device time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Iterator
 
 import torch
 
 from druglamp_tpu_torch.serve import resolve_device
+
+_profiler = torch.autograd.profiler
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the profiler's host timeline (a user annotation, on
+    the clock of the card's records) around the block while a profiler
+    records, else one shared context that does nothing."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -40,53 +54,6 @@ def trace(log_dir: str, device="cuda") -> Iterator[torch.profiler.profile]:
         yield prof
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-
-
-def _first_tensor(tree: Any) -> Optional[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return tree
-    items = tree.values() if isinstance(tree, dict) else (
-        tree if isinstance(tree, (list, tuple)) else ())
-    for item in items:
-        found = _first_tensor(item)
-        if found is not None:
-            return found
-    return None
-
-
-class StepTimer:
-    """Wall-clock step times with a percentile summary; ``stop(result)``
-    first waits until the device that holds ``result`` (a tensor, or the
-    first tensor of a tuple, list or dict) is done."""
-
-    def __init__(self):
-        self._times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, result: Any = None) -> None:
-        if self._t0 is None:
-            raise RuntimeError("StepTimer.stop() without start()")
-        t = _first_tensor(result)
-        if t is not None and t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        self._times.append(time.perf_counter() - self._t0)
-        self._t0 = None
-
-    def summary(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        ts = sorted(self._times)
-        n = len(ts)
-        return {
-            "steps": n,
-            "mean_ms": 1000 * sum(ts) / n,
-            "p50_ms": 1000 * ts[n // 2],
-            "p90_ms": 1000 * ts[min(n - 1, int(0.9 * n))],
-            "max_ms": 1000 * ts[-1],
-        }
 
 
 def device_time_ms(fn, *args, n1: int = 10, n2: int = 40, device="cuda") -> float:

@@ -14,14 +14,12 @@ and ``utils/profiling.py``, on the CPU.
   the native packer and from numpy, LLM arrays from a seeded cache, and for
   DrugLAMPwoLLM, a ragged last batch included; ``decode_batch`` passes a dense
   batch through; the prefetch thread yields the inline batches.
-- ``StepTimer`` gives the JAX package's summary keys, and
-  ``device_time_ms(device="cpu")`` is positive; ``trace`` writes a
+- ``device_time_ms(device="cpu")`` is positive; ``trace`` writes a
   non-empty Chrome trace.
 """
 
 import json
 import os
-import time
 
 import ml_dtypes
 import numpy as np
@@ -32,7 +30,6 @@ import druglamp_tpu.chem.native as jnative
 from druglamp_tpu.data.cache import EmbeddingCache as JCache
 from druglamp_tpu.data.dataset import DTIDataset as JDataset
 from druglamp_tpu.data.loader import BatchLoader as JBatchLoader
-from druglamp_tpu.utils.profiling import StepTimer as JStepTimer
 from druglamp_tpu_torch.chem import native
 from druglamp_tpu_torch.chem.featurize import atom_features_matrix, drug_graph_arrays
 from druglamp_tpu_torch.chem.smiles import parse_smiles
@@ -41,7 +38,7 @@ from druglamp_tpu_torch.data.cache import BF16_HOST, EmbeddingCache
 from druglamp_tpu_torch.data.dataset import DTIDataset
 from druglamp_tpu_torch.data.encoding import decode_batch
 from druglamp_tpu_torch.data.loader import BatchLoader
-from druglamp_tpu_torch.utils.profiling import StepTimer, device_time_ms, trace
+from druglamp_tpu_torch.utils.profiling import device_time_ms, trace
 from tests.test_torch_port_host_pipeline import _kw, _seed_cache
 from tests.test_torch_port_trainer import _cfg, _toy_dataset
 
@@ -201,19 +198,6 @@ def test_missing_native_packer_is_said_once(world, monkeypatch, capsys):
 
 
 # --- utils/profiling -------------------------------------------------------------------------
-
-def test_step_timer_gives_the_jax_summary_keys():
-    port, ref = StepTimer(), JStepTimer()
-    for t in (port, ref):
-        for _ in range(3):
-            t.start()
-            time.sleep(0.002)
-            t.stop(torch.ones(2))
-    assert port.summary().keys() == ref.summary().keys()
-    assert port.summary()["steps"] == 3 and port.summary()["mean_ms"] >= 2.0
-    with pytest.raises(RuntimeError):
-        StepTimer().stop()
-
 
 def test_device_time_on_the_cpu_and_the_trace(tmp_path):
     x = torch.randn(64, 64)
