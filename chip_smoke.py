@@ -253,8 +253,20 @@ printing its own lines; any failure exits non-zero and prints no result:
    ``chiprun_out/remat_memory.txt``) and the step by CUDA events; fails
    unless ``dots`` and ``full`` peak below ``none``; (c) a 4-step gather
    epoch on phase 9's dataset under ``full`` equal to ``none``; (d) the
-   peaks at batch 64 under ``none`` and ``full``.  The run's total seconds
-   are printed last.
+   peaks at batch 64 under ``none`` and ``full``.
+
+19. AdamW kernel — the multi-tensor AdamW (``kernels/adamw.py``,
+   ``csrc/adamw.cu``) over DrugLAMP2C2P's 236 leaves (14,882,888 f32
+   entries): 20 steps of seeded gradients against torch's foreach
+   capturable AdamW (parameters, moments, step counts within rtol 1e-5 /
+   atol 1e-7); one step's device time by CUDA events around calls queued
+   behind a spin kernel (``queued_ms``) against its bytes bound (28 B an
+   entry), fails above 250 us; the host's time to issue it, and torch's
+   foreach step back to back (the host's pace).  Its record joins the
+   kernel records, with the main path's launches: phases 6, 9 and 10 count
+   the kernel's launches with the others' and fail unless a step launches it
+   once an optimizer (1 a cls step, 3 a full-gate step, none in the eval
+   pass).  The run's total seconds are printed last.
 
 Kernel times are device times from the profiler (``device_ms``), taken in
 each phase before its profiled step or epoch; a timing window counts only
@@ -987,12 +999,15 @@ def train_checks(torch, attention):
           f"compact batch of {TRAIN_B} decoded on the card; {TRAIN_STEPS} steps at lr "
           f"{TRAIN_LR}, pmma dropout {cfg.pmma_dropout}", flush=True)
 
+    from druglamp_tpu_torch.kernels import adamw
+
     attention.reset_launch_counts()
+    adamw.reset_launch_counts()
     losses = [step(state, batch, gen, TRAIN_LR).cls_loss for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    launches = dict(attention.LAUNCHES)
+    launches = {**attention.LAUNCHES, **adamw.LAUNCHES}
     per_step = {"paired_attention_fwd": 4, "self_attention_fwd": 2,
-                "paired_attention_bwd": 4, "self_attention_bwd": 2}
+                "paired_attention_bwd": 4, "self_attention_bwd": 2, "adamw": 1}
     print(f"  main path: {TRAIN_STEPS} steps, launches {launches}", flush=True)
     if launches != {k: TRAIN_STEPS * v for k, v in per_step.items()}:
         fail(f"kernel launches {launches}, expected {per_step} per step")
@@ -1313,8 +1328,11 @@ def plain_gcn(gcn):
 
 
 def reset_counts(attention, gcn) -> None:
+    from druglamp_tpu_torch.kernels import adamw
+
     attention.reset_launch_counts()
     gcn.reset_launch_counts()
+    adamw.reset_launch_counts()
 
 
 def epoch_checks(torch, attention, gcn, cfg, train, val, data, emb):
@@ -1326,6 +1344,7 @@ def epoch_checks(torch, attention, gcn, cfg, train, val, data, emb):
 
     from druglamp_tpu_torch.data.device_data import eval_index_plan, train_index_plan
     from druglamp_tpu_torch.eval.metrics import MetricCollector
+    from druglamp_tpu_torch.kernels import adamw
     from druglamp_tpu_torch.models.registry import build_model
     from druglamp_tpu_torch.train.state import TrainState
     from druglamp_tpu_torch.train.steps import make_epoch_step_gather, make_eval_scan_gather
@@ -1348,9 +1367,10 @@ def epoch_checks(torch, attention, gcn, cfg, train, val, data, emb):
     out = epoch(state, idx, ones, tree, emb, torch.Generator(device=DEVICE).manual_seed(SEED),
                 TRAIN_LR)
     torch.cuda.synchronize()
-    launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    launches = {**attention.LAUNCHES, **gcn.LAUNCHES, **adamw.LAUNCHES}
     per_step = {"paired_attention_fwd": 4, "self_attention_fwd": 2, "paired_attention_bwd": 4,
-                "self_attention_bwd": 2, "gcn_packed_matmul": 3, "gcn_packed_matmul_bwd": 3}
+                "self_attention_bwd": 2, "gcn_packed_matmul": 3, "gcn_packed_matmul_bwd": 3,
+                "adamw": 1}
     print(f"  main path, epoch: launches {launches}", flush=True)
     if launches != {k: S * v for k, v in per_step.items()}:
         fail(f"epoch launches {launches}, expected {per_step} per step")
@@ -1372,7 +1392,7 @@ def epoch_checks(torch, attention, gcn, cfg, train, val, data, emb):
     reset_counts(attention, gcn)
     probs, vlosses = evaluate(eidx, evalid, vtree, emb)
     torch.cuda.synchronize()
-    eval_launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    eval_launches = {**attention.LAUNCHES, **gcn.LAUNCHES, **adamw.LAUNCHES}
     print(f"  main path, eval: launches {eval_launches}", flush=True)
     want = {k: (SE * v if k in ("paired_attention_fwd", "self_attention_fwd",
                                 "gcn_packed_matmul") else 0) for k, v in per_step.items()}
@@ -1657,6 +1677,7 @@ def full_gate_checks(torch, attention, gcn):
     import dataclasses
 
     from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.kernels import adamw
 
     os.environ["DRUGLAMP_PACKED_GCN"] = "1"
     cfg = Config()
@@ -1681,10 +1702,11 @@ def full_gate_checks(torch, attention, gcn):
         outs.append(step(state, batch, gen, TRAIN_LR, SSL_LR, CM_LR, MARGIN, w))
         w = outs[-1].cm_weight
     torch.cuda.synchronize()
-    launches = {**attention.LAUNCHES, **gcn.LAUNCHES}
+    launches = {**attention.LAUNCHES, **gcn.LAUNCHES, **adamw.LAUNCHES}
+    per_step = {**FULL_GATE_PER_STEP, "adamw": 3}       # one launch an optimizer
     print(f"  main path: {TRAIN_STEPS} full-gate steps, launches {launches}", flush=True)
-    if launches != {k: TRAIN_STEPS * v for k, v in FULL_GATE_PER_STEP.items()}:
-        fail(f"full-gate launches {launches}, expected {FULL_GATE_PER_STEP} per step")
+    if launches != {k: TRAIN_STEPS * v for k, v in per_step.items()}:
+        fail(f"full-gate launches {launches}, expected {per_step} per step")
     losses = {k: [float(getattr(o, k)) for o in outs] for k in ("cls_loss", "ssl_loss", "cm_loss")}
     for k, v in losses.items():
         print(f"  {k}: {['%.6f' % x for x in v]}", flush=True)
@@ -3875,6 +3897,76 @@ def flat_opt_checks(torch, attention, gcn):
     return main_launches
 
 
+# --- phase 19: the multi-tensor AdamW kernel ------------------------------------------------
+
+ADAMW_STEPS = 20
+
+
+def adamw_checks(torch, launches: int = 0):
+    """Phase 19: the AdamW kernel on DrugLAMP2C2P's leaves against torch's
+    foreach capturable AdamW, then its device time beside its bound, its
+    host issue time, and torch's step back to back → its record, with the
+    main path's ``launches`` (phases 6 and 9; main adds phase 10's)."""
+    from druglamp_tpu_torch.config import Config
+    from druglamp_tpu_torch.kernels import adamw
+    from druglamp_tpu_torch.models.registry import build_model
+    from druglamp_tpu_torch.train.state import apply_optimizer, make_adamw
+
+    shapes = [p.shape for p in build_model("DrugLAMP2C2P", Config(),
+                                           generator=torch.Generator().manual_seed(SEED)
+                                           ).parameters()]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    start = [torch.randn(s, device=DEVICE, generator=gen) for s in shapes]
+    ours = [torch.nn.Parameter(t.clone()) for t in start]
+    ref = [torch.nn.Parameter(t.clone()) for t in start]
+    opt = make_adamw(ours)
+    ref_opt = torch.optim.AdamW(ref, lr=0.0, betas=(adamw.B1, adamw.B2), eps=adamw.EPS,
+                                weight_decay=adamw.WEIGHT_DECAY, foreach=True, capturable=True)
+    adamw.reset_launch_counts()
+    for k in range(ADAMW_STEPS):
+        lr = TRAIN_LR * 0.9 ** k
+        for p, q in zip(ours, ref):
+            p.grad = q.grad = torch.randn(p.shape, device=DEVICE, generator=gen)
+        apply_optimizer(opt, lr)
+        ref_opt.param_groups[0]["lr"] = lr
+        ref_opt.step()
+    torch.cuda.synchronize()
+    worst, bad = 0.0, 0
+    for p, q in zip(ours, ref):
+        for a, b in [(p, q)] + [(opt.state[p][k], ref_opt.state[q][k])
+                                for k in ("exp_avg", "exp_avg_sq", "step")]:
+            worst = max(worst, (a - b).abs().max().item())
+            bad += not torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+    n = sum(p.numel() for p in ours)
+    print(f"  {len(ours)} leaves, {n} entries: {ADAMW_STEPS} kernel steps against torch's "
+          f"foreach capturable AdamW: max |d| {worst:.3e}, {bad} tensors outside rtol 1e-5 / "
+          f"atol 1e-7; launches {adamw.LAUNCHES}", flush=True)
+    if bad or adamw.LAUNCHES["adamw"] != ADAMW_STEPS:
+        fail(f"phase 19: the AdamW kernel disagrees with torch's ({bad} tensors) or launched "
+             f"{adamw.LAUNCHES} times for {ADAMW_STEPS} steps")
+    kernel = lambda: apply_optimizer(opt, TRAIN_LR)     # noqa: E731
+    # queued CUDA events, not device_ms: late in the run the profiler lost every
+    # record of a 50-call window of this kernel, 8 windows in 8, and kept the
+    # 100-call window's (the host issues a call in about 1 ms, the card runs it
+    # in 0.15)
+    ms, issue_ms = queued_ms(torch, kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ADAMW_STEPS):
+        ref_opt.step()
+    torch.cuda.synchronize()
+    torch_ms = (time.perf_counter() - t0) / ADAMW_STEPS * 1e3
+    bound_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+    print(f"  a step: kernel {ms * 1e3:.2f} us on the card ({bound_ms / ms:.1%} of its bytes "
+          f"bound {bound_ms * 1e3:.2f} us), issued in {issue_ms / 50:.3f} ms; torch's foreach "
+          f"step {torch_ms:.3f} ms back to back", flush=True)
+    if not ms * 1e3 <= 250:
+        fail(f"phase 19: the AdamW kernel takes {ms * 1e3:.2f} us a step, over 250 us")
+    return {"name": "adamw", "launches": launches, "leaves": len(ours), "entries": n,
+            "max_abs_err": worst, "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "host_ms": issue_ms / 50, "library_step_ms": torch_ms}
+
+
 def head_split(ds, n: int):
     """The first ``n`` pairs of a dataset split (a shallow copy; the same
     entity table)."""
@@ -4740,6 +4832,10 @@ def main() -> None:
     phase("18 DRUGLAMP_REMAT (block-wise rematerialisation of the train step)")
     remat_launches = remat_checks(torch, attention, gcn, smi, train, data, emb)
     del train, val, test, data, emb
+
+    phase("19 the multi-tensor AdamW kernel")
+    print(f"  card: {smi}", flush=True)
+    records.append(adamw_checks(torch, train_launches["adamw"] + epoch_launches["adamw"]))
     later = (gate_launches, fit_launches, cli_launches, enc_launches, dp_launches, tp_launches,
              lin_launches, fdr_launches, sw_launches, remat_launches)
     for rec in records:        # the launches of the main path, phases 10 to 18 included

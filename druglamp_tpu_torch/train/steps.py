@@ -39,8 +39,11 @@ bit-identical parameters; the caller's settings are back after each step.
 On a CUDA model the PMMA attention and the packed GCN run through their
 hand-written kernels, forward and backward: the attention backwards once a
 step (only the cls loss reaches PMMA), the GCN backward once for each active
-loss that reaches the GCN tokens.  After the step each parameter's
-``.grad`` holds the gradient its last optimizer applied.
+loss that reaches the GCN tokens.  Each optimizer takes its gradient
+through the parameters' ``.grad`` (``train/state.py::apply_optimizer``): on
+a card one launch of the multi-tensor AdamW kernel (``kernels/adamw.py``)
+an optimizer, on the CPU torch's foreach AdamW.  After the step each
+parameter's ``.grad`` holds the gradient its last optimizer applied.
 
 The epoch driver runs S steps in one call, each gathering its batch from the
 device-resident dataset by the (S, B) index plan, the chunk's LLM embeddings
